@@ -16,14 +16,27 @@ __all__ = ["bsk_from_numpy", "bsk_to_numpy", "lwe_from_numpy",
            "lwe_to_numpy"]
 
 
+def _i8_tensor(arr, dev):
+    if arr is None:
+        return None
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.int8))
+    if not a.flags.writeable:       # e.g. a view of a JAX array
+        a = a.copy()
+    return torch.from_numpy(a).to(dev)
+
+
 def bsk_from_numpy(ggsw_i8, ksk_a, ksk_b, params: TfheParams,
-                   device=None) -> BootstrapKey:
-    """int8 GGSW planes and uint32 KSK arrays -> the port's BootstrapKey."""
+                   device=None, ggsw_tiles=None, ggsw_slabs=None
+                   ) -> BootstrapKey:
+    """int8 GGSW planes and uint32 KSK arrays -> the port's BootstrapKey;
+    the prepared ``ggsw_tiles`` / ``ggsw_slabs`` of a JAX key carry across
+    field by field where given."""
     dev = resolve_device(device)
-    g = np.ascontiguousarray(np.asarray(ggsw_i8, dtype=np.int8))
-    return BootstrapKey(ggsw_i8=torch.from_numpy(g).to(dev),
+    return BootstrapKey(ggsw_i8=_i8_tensor(ggsw_i8, dev),
                         ksk_a=u32_to_tensor(ksk_a, dev),
-                        ksk_b=u32_to_tensor(ksk_b, dev), params=params)
+                        ksk_b=u32_to_tensor(ksk_b, dev), params=params,
+                        ggsw_tiles=_i8_tensor(ggsw_tiles, dev),
+                        ggsw_slabs=_i8_tensor(ggsw_slabs, dev))
 
 
 def bsk_to_numpy(bsk: BootstrapKey):

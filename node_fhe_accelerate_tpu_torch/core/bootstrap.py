@@ -7,19 +7,28 @@ values are int32 tensors with uint32 bits (ops/u32.py).  Randomness comes
 from an explicit ``torch.Generator``; the draws differ from ``jax.random``,
 so keys made here are checked by decryption, not by equality.
 
-External-product backends:
+External-product backends, under the reference's names:
 
-* ``"kernel"`` (default): each blind-rotate step is ops/cmux.py
-  ``cmux_step`` -- the hand-written Hopper kernel for a CUDA tensor, its
-  plain PyTorch version for a CPU tensor.
+* ``"pallas"`` (default; ``"kernel"`` is a synonym): each blind-rotate step
+  is ops/cmux.py ``cmux_step``.  The reference switches to precomputed
+  tiles when the key carries them; here both of its entries are the one
+  kernel that reads the key row as stored, so there is one path.
+* ``"pallas_fused"``: the whole ladder in one launch, batch tile outer
+  (ops/ladder.py ``blind_rotate_fused``), on the key as stored.
+* ``"mxu_fused"``: the whole ladder in one launch, steps outer
+  (ops/ladder.py ``blind_rotate_fused_steps``), on the slabs of
+  ``prepare_bsk(form="slabs")``.
 * ``"mxu"``: the plain ``external_product_mxu`` algebra (rotate, then
-  cmux), the reference the kernel is held against.
+  cmux), the reference the kernels are held against.
 
-The reference's "ntt", "crt", fused and adaptive "auto" backends are not
+For a CUDA tensor the first three launch hand-written Hopper kernels and
+nothing else; for a CPU tensor each takes its plain PyTorch version.  The
+reference's "ntt" and "crt" backends and its adaptive "auto" race are not
 ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
@@ -29,7 +38,9 @@ import torch
 
 from ..device import resolve_device
 from ..ops import i8 as i8ops
-from ..ops.cmux import cmux_step, external_product_plain
+from ..ops.cmux import (build_all_step_slabs, build_all_step_tiles,
+                        cmux_step, external_product_plain)
+from ..ops.ladder import blind_rotate_fused, blind_rotate_fused_steps
 from ..ops.u32 import lshr, matmul_mod32
 from .torus import TorusRing
 
@@ -55,8 +66,8 @@ class TfheParams:
     lwe_noise_std: float = 2.0 ** 17    # absolute torus units (sigma * 2^32)
     glwe_noise_std: float = 2.0 ** 7
     plaintext_modulus: int = 4
-    # Drop this many LOW digit planes from the BSK's int8 form ("mxu"
-    # backend only): an approximate gadget (see TFHE_BOOT_128_K4T).
+    # Drop this many LOW digit planes from the BSK's int8 form ("mxu" and
+    # "mxu_fused" backends): an approximate gadget (see TFHE_BOOT_128_K4T).
     bsk_drop_planes: int = 0
 
 
@@ -93,7 +104,8 @@ def TFHE_BOOT_128_K4T() -> TfheParams:
     d0 in [-128, 127] -> per-step std ~2^17.9, ~2^22.5 over 630 steps)
     under-predicts the truncation error ~20x, because the CMux difference's
     digits are test-polynomial-structured, not uniform.  Kept as a measured
-    negative result and for noise research.  Requires ext_backend="mxu"."""
+    negative result and for noise research.  Requires ext_backend="mxu" or
+    "mxu_fused"."""
     return TfheParams(poly_degree=256, glwe_dim=4,
                       pbs_base_log=8, pbs_level=2, bsk_drop_planes=1)
 
@@ -119,12 +131,20 @@ class BootstrapKey:
     * ``ggsw_i8``: int8 (n, lvl, k+1, k+1, P, 2N), the signed base-256
       digit planes of g~ = [g, -g] with the coefficient axis last (P is
       4 - bsk_drop_planes);
-    * ``ksk_a``: int32 (kN, ks_level, n); ``ksk_b``: int32 (kN, ks_level).
+    * ``ksk_a``: int32 (kN, ks_level, n); ``ksk_b``: int32 (kN, ks_level);
+    * ``ggsw_tiles``: per-step diagonal Toeplitz tiles, int8
+      (n, lvl, k+1, k+1, P, 2*nt-1, 128, 128), set by
+      ``TfheEngine.prepare_bsk(form="tiles")``;
+    * ``ggsw_slabs``: per-step rt-major slabs for the "mxu_fused" backend,
+      int8 (n, nt, lvl*(k+1)*N, (k+1)*P*128), set by
+      ``prepare_bsk(form="slabs")``.
     """
     ggsw_i8: Any
     ksk_a: Any
     ksk_b: Any
     params: TfheParams
+    ggsw_tiles: Any = None
+    ggsw_slabs: Any = None
 
 
 def _i32(v: int) -> int:
@@ -136,16 +156,33 @@ def _i32(v: int) -> int:
 class TfheEngine:
     """Batched torus-2^32 TFHE on one device."""
 
-    def __init__(self, params: TfheParams, ext_backend: str = "kernel",
+    _UNPORTED = {
+        "auto": "the slice that ports utils/dispatch.py (the adaptive race)",
+        "ntt": "the slice that ports the modular/NTT core",
+        "crt": "the slice that ports the modular/NTT core",
+    }
+
+    def __init__(self, params: TfheParams, ext_backend: str = "pallas",
                  device=None):
-        """``device`` defaults to CUDA and raises without a card; pass
-        ``device="cpu"`` for the plain PyTorch path."""
-        if ext_backend not in ("kernel", "mxu"):
+        """``ext_backend``: see the module docstring.  ``device`` defaults
+        to CUDA and raises without a card; pass ``device="cpu"`` for the
+        plain PyTorch path."""
+        if ext_backend in self._UNPORTED:
+            raise NotImplementedError(
+                f"ext_backend {ext_backend!r} comes with "
+                f"{self._UNPORTED[ext_backend]}")
+        if ext_backend == "kernel":
+            ext_backend = "pallas"
+        if ext_backend not in ("pallas", "pallas_fused", "mxu_fused", "mxu"):
             raise ValueError(f"unknown ext_backend {ext_backend!r}")
-        if params.bsk_drop_planes and ext_backend != "mxu":
+        if params.bsk_drop_planes and ext_backend not in ("mxu",
+                                                          "mxu_fused"):
             raise ValueError(
-                "bsk_drop_planes requires ext_backend='mxu' "
-                f"(got {ext_backend!r})")
+                "bsk_drop_planes requires ext_backend='mxu' or "
+                f"'mxu_fused' (got {ext_backend!r})")
+        if ext_backend != "mxu" and params.poly_degree % 128:
+            raise ValueError(f"ext_backend {ext_backend!r} needs "
+                             "poly_degree % 128 == 0")
         k, lvl = params.glwe_dim, params.pbs_level
         # int32 accumulation bound: terms * (base/2) * 128 < 2^31
         terms = (k + 1) * lvl * params.poly_degree
@@ -304,6 +341,29 @@ class TfheEngine:
         return BootstrapKey(ggsw_i8=ggsw_i8, ksk_a=ksk_a, ksk_b=ksk_b,
                             params=p)
 
+    def prepare_bsk(self, bsk: BootstrapKey,
+                    form: str | None = None) -> BootstrapKey:
+        """Precompute the per-step Toeplitz expansion once per key.
+
+        form="slabs": the rt-major slabs the "mxu_fused" ladder reads
+        (8.26 GB at TFHE_BOOT_128_K4), in the reference's layout -- the
+        kernel reads that layout as it is, so no permuted copy is kept.
+        form="tiles": the diagonal 128x128 tiles (6.19 GB at K4); no kernel
+        of the port reads them (the per-step kernel takes the key row as
+        stored), they are kept for parity with the reference.  Default: the
+        form this engine's backend consumes.  Idempotent; the returned key
+        drops into every int8 backend unchanged."""
+        if form is None:
+            form = "slabs" if self.backend == "mxu_fused" else "tiles"
+        if form not in ("slabs", "tiles"):
+            raise ValueError(f"unknown form {form!r}: 'slabs' or 'tiles'")
+        field = "ggsw_" + form
+        if getattr(bsk, field) is not None:
+            return bsk
+        build = build_all_step_slabs if form == "slabs" \
+            else build_all_step_tiles
+        return dataclasses.replace(bsk, **{field: build(bsk.ggsw_i8)})
+
     # ------------------------------------------------------------------
     # External product / CMux
     # ------------------------------------------------------------------
@@ -342,7 +402,7 @@ class TfheEngine:
     def blind_rotate(self, acc_data, lwe: LweCiphertext, bsk: BootstrapKey,
                      lut_count: int = 1) -> torch.Tensor:
         """acc <- X^{-b~} acc; then the CMux ladder over the LWE mask, one
-        step per bootstrap-key row."""
+        step per bootstrap-key row, routed by backend (module docstring)."""
         p = self.p
         kp1, n = p.glwe_dim + 1, p.poly_degree
         b_rot = 0 - self._rotations(lwe.b, lut_count)
@@ -355,12 +415,28 @@ class TfheEngine:
         if g.shape[0] != p.n_lwe:
             raise ValueError(f"BSK has {g.shape[0]} rows, params say "
                              f"n_lwe={p.n_lwe}")
-        for i in range(p.n_lwe):
-            if self.backend == "kernel":
-                acc = cmux_step(acc, rots[i], g[i], p.pbs_base_log)
-            else:
-                rotated = self.ring.rotate(acc, rots[i][:, None])
-                acc = self.cmux(g[i], acc, rotated)
+        if self.backend == "mxu_fused":
+            # Slabs come from prepare_bsk(form="slabs"); without them they
+            # are built here, on every call: prepare once in a service.
+            slabs = bsk.ggsw_slabs
+            if slabs is None:
+                slabs = build_all_step_slabs(g)
+            planes = slabs.shape[-1] // (kp1 * 128)
+            if planes != 4 - p.bsk_drop_planes:
+                raise ValueError(
+                    f"BSK slabs carry {planes} digit planes but engine "
+                    f"params expect {4 - p.bsk_drop_planes}")
+            acc = blind_rotate_fused_steps(acc, rots, slabs, p.pbs_base_log,
+                                           drop=p.bsk_drop_planes)
+        elif self.backend == "pallas_fused":
+            acc = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
+        else:
+            for i in range(p.n_lwe):
+                if self.backend == "pallas":
+                    acc = cmux_step(acc, rots[i], g[i], p.pbs_base_log)
+                else:
+                    rotated = self.ring.rotate(acc, rots[i][:, None])
+                    acc = self.cmux(g[i], acc, rotated)
         return acc.reshape(lead + (kp1, n))
 
     def sample_extract(self, acc_data) -> LweCiphertext:
@@ -498,3 +574,56 @@ class TfheEngine:
     def programmable_bootstrap(self, lwe: LweCiphertext, bsk: BootstrapKey,
                                lut):
         return self.bootstrap_with_test_poly(lwe, bsk, lut)
+
+    # ------------------------------------------------------------------
+    # Encrypted comparisons.  Message domain: [0, t/2) (the negacyclic
+    # half-torus window); results encode 0/1 at Delta.
+    # ------------------------------------------------------------------
+    def lwe_is_zero(self, lwe: LweCiphertext, bsk: BootstrapKey
+                    ) -> LweCiphertext:
+        """PBS of [x == 0] (for x in [0, t/2))."""
+        lut = self.make_lut(lambda v: 1 if v == 0 else 0)
+        return self.programmable_bootstrap(lwe, bsk, lut)
+
+    def lwe_eq(self, a: LweCiphertext, b: LweCiphertext, bsk: BootstrapKey
+               ) -> LweCiphertext:
+        """Encrypted equality: PBS([a - b == 0]), valid for
+        |a - b| < t/2 (the negative wrap passes through the negacyclic
+        negation of the LUT window)."""
+        return self.lwe_is_zero(self.lwe_sub(a, b), bsk)
+
+    def lwe_gt_threshold(self, lwe: LweCiphertext, threshold: int,
+                         bsk: BootstrapKey) -> LweCiphertext:
+        """PBS of [x >= threshold] (x in [0, t/2))."""
+        lut = self.make_lut(lambda v: 1 if v >= threshold else 0)
+        return self.programmable_bootstrap(lwe, bsk, lut)
+
+    def lwe_lt_threshold(self, lwe: LweCiphertext, threshold: int,
+                         bsk: BootstrapKey) -> LweCiphertext:
+        """PBS of [x < threshold] (x in [0, t/2))."""
+        lut = self.make_lut(lambda v: 1 if v < threshold else 0)
+        return self.programmable_bootstrap(lwe, bsk, lut)
+
+    def lwe_in_range(self, lwe: LweCiphertext, lo: int, hi: int,
+                     bsk: BootstrapKey) -> LweCiphertext:
+        """PBS of [lo <= x <= hi] (x in [0, t/2))."""
+        lut = self.make_lut(lambda v: 1 if lo <= v <= hi else 0)
+        return self.programmable_bootstrap(lwe, bsk, lut)
+
+    def detect_duplicate(self, new_lwe: LweCiphertext, existing: list,
+                         bsk: BootstrapKey) -> LweCiphertext:
+        """OR of encrypted equalities against existing ballots: the K
+        equality tests run as ONE batched PBS (the existing-ballot axis is
+        a batch axis of the blind rotate), then the homomorphic bit-sum
+        feeds a single threshold PBS."""
+        if not existing:
+            return LweCiphertext(a=torch.zeros_like(new_lwe.a),
+                                 b=torch.zeros_like(new_lwe.b))
+        a = torch.stack([ct.a for ct in existing])          # (K, ..., n)
+        b = torch.stack([ct.b for ct in existing])          # (K, ...)
+        diff = LweCiphertext(a=new_lwe.a[None] - a, b=new_lwe.b[None] - b)
+        bits = self.lwe_is_zero(diff, bsk)                  # batched PBS
+        # int64 sum, then the low 32 bits: the sum mod 2^32
+        acc = LweCiphertext(a=bits.a.sum(dim=0).to(torch.int32),
+                            b=bits.b.sum(dim=0).to(torch.int32))
+        return self.lwe_gt_threshold(acc, 1, bsk)

@@ -36,36 +36,15 @@
 // refuses shapes outside that bound.  Recombination and the CMux add wrap
 // in uint32 as the reference does.
 //
-// This is the simple first form (legacy mma.sync, one block per SM).
-// wgmma, TMA and a persistent whole-ladder kernel are later work.
+// This is the simple first form (legacy mma.sync, one block per SM); wgmma
+// and TMA are later work.  The phases live in cmux_common.cuh, shared with
+// the whole-ladder kernels (ladder_tiles.cu, ladder_steps.cu).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cmux_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kNTiles = 4;      // 8-column MMA tiles per warp task
-constexpr int kMaxPlanes = 4;
-constexpr int kRowPad = 16;     // bytes after each digit row: spreads banks
-constexpr int kTablePad = 32;   // H runs past 2N so x + 16 + 3 never wraps
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bytes base[x .. x+3] as one little-endian word, for any alignment of x
-// (base itself is 4-byte aligned).
-__device__ __forceinline__ uint32_t load_word(const int8_t* base, int x) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(base) + (x >> 2);
-  return __funnelshift_r(w[0], w[1], (x & 3) * 8);
-}
+using namespace nfa;
 
 __global__ void __launch_bounds__(kThreads)
 cmux_step_kernel(const uint32_t* __restrict__ acc,
@@ -74,119 +53,15 @@ cmux_step_kernel(const uint32_t* __restrict__ acc,
                  int batch, int kp1, int lvl, int planes, int n,
                  int base_log, int bt) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int two_n = 2 * n;
-  const int kdim = lvl * kp1 * n;          // contraction length
-  const int rs = kdim + kRowPad;           // digit row stride, bytes
-  const int hs = two_n + kTablePad;        // table stride, bytes
+  const int rs = static_cast<int>(digit_row_bytes(lvl, kp1, n));
   int8_t* dig = reinterpret_cast<int8_t*>(smem);   // [bt][rs]
   int8_t* tab = dig + bt * rs;                     // [lvl][k+1][k+1][P][hs]
   const int b0 = blockIdx.x * bt;
-  const int tid = threadIdx.x;
-
-  // 1. Reversed weight tables: tab[t][y] = g[t][(-y) mod 2N].
-  const int ntab = lvl * kp1 * kp1 * planes;
-  for (int i = tid; i < ntab * hs; i += kThreads) {
-    const int t = i / hs;
-    const int y = i - t * hs;
-    tab[i] = g[t * two_n + ((two_n - y) & (two_n - 1))];
-  }
-
-  // 2. Balanced digits of X^rot * acc - acc (TorusRing.decompose).
-  const int total = lvl * base_log;
-  const uint32_t rounding = total < 32 ? (1u << (31 - total)) : 0u;
-  const int top_shift = 32 - total;
-  const uint32_t dmask = (1u << base_log) - 1u;
-  const uint32_t half = 1u << (base_log - 1);
-  for (int i = tid; i < bt * kp1 * n; i += kThreads) {
-    const int row = i / (kp1 * n);
-    const int rem = i - row * kp1 * n;
-    const int j = rem / n;
-    const int c = rem - j * n;
-    const int b = b0 + row;
-    int8_t* drow = dig + row * rs + j * n + c;
-    if (b >= batch) {
-      for (int l = 0; l < lvl; ++l) drow[l * kp1 * n] = 0;
-      continue;
-    }
-    const uint32_t* a = acc + (static_cast<size_t>(b) * kp1 + j) * n;
-    int r = rot[b] % two_n;
-    if (r < 0) r += two_n;
-    const int idx = (c - r) & (two_n - 1);
-    const uint32_t v = idx < n ? a[idx] : 0u - a[idx - n];
-    uint32_t y = (v - a[c] + rounding) >> top_shift;
-    uint32_t carry = 0u;
-    for (int l = lvl - 1; l >= 0; --l) {
-      const uint32_t d = (y & dmask) + carry;
-      y >>= base_log;
-      carry = d >= half ? 1u : 0u;
-      drow[l * kp1 * n] = static_cast<int8_t>(
-          carry ? static_cast<int>(d) - (1 << base_log)
-                : static_cast<int>(d));
-    }
-  }
+  build_tables(g, tab, lvl * kp1 * kp1 * planes, n);
+  digit_phase(acc, rot, dig, rs, b0, bt, batch, kp1, lvl, n, base_log);
   __syncthreads();
-
-  // 3. Tensor-core contraction + in-register plane recombination.
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gq = lane >> 2;   // MMA groupID
-  const int tq = lane & 3;    // MMA threadID_in_group
-  const int m_tiles = bt / 16;
-  const int n_groups = n / (8 * kNTiles);
-  const int tasks = m_tiles * kp1 * n_groups;
-  for (int task = warp; task < tasks; task += kWarps) {
-    const int mt = task % m_tiles;
-    const int jp = (task / m_tiles) % kp1;
-    const int r0 = (task / (m_tiles * kp1)) * (8 * kNTiles);
-    int c_frag[kMaxPlanes][kNTiles][4] = {};
-    const int8_t* d0 = dig + (mt * 16 + gq) * rs + 4 * tq;
-    const int8_t* d1 = d0 + 8 * rs;
-    for (int lj = 0; lj < lvl * kp1; ++lj) {
-      const int8_t* tb = tab + static_cast<size_t>(lj * kp1 + jp) * planes * hs;
-      for (int c0 = 0; c0 < n; c0 += 32) {
-        const int q = lj * n + c0;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(d0 + q);
-        a[1] = *reinterpret_cast<const uint32_t*>(d1 + q);
-        a[2] = *reinterpret_cast<const uint32_t*>(d0 + q + 16);
-        a[3] = *reinterpret_cast<const uint32_t*>(d1 + q + 16);
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          // B fragment of column r = r0 + 8nt + gq, rows c0 + 4tq (+16):
-          // T[c .. c+3, r] = H[x .. x+3] with x = (c - r) mod 2N.
-          const int x = (c0 + 4 * tq - (r0 + nt * 8 + gq)) & (two_n - 1);
-#pragma unroll
-          for (int p = 0; p < kMaxPlanes; ++p) {
-            if (p < planes) {
-              const int8_t* h = tb + p * hs;
-              mma_s8(c_frag[p][nt], a, load_word(h, x), load_word(h, x + 16));
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      const int col = r0 + nt * 8 + 2 * tq;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int b = b0 + mt * 16 + gq + 8 * hh;
-        if (b >= batch) continue;
-        const size_t o = (static_cast<size_t>(b) * kp1 + jp) * n + col;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          uint32_t v = 0u;
-#pragma unroll
-          for (int p = 0; p < kMaxPlanes; ++p) {
-            if (p < planes) {
-              v += static_cast<uint32_t>(c_frag[p][nt][2 * hh + e]) << (8 * p);
-            }
-          }
-          out[o + e] = acc[o + e] + v;
-        }
-      }
-    }
-  }
+  toeplitz_mma_phase(dig, rs, tab, acc, out, b0, bt, batch, kp1, lvl, planes,
+                     n);
 }
 
 }  // namespace
@@ -197,31 +72,19 @@ cmux_step_kernel(const uint32_t* __restrict__ acc,
 extern "C" int nfa_cmux_step(const void* acc, const void* rot, const void* g,
                              void* out, int batch, int kp1, int lvl,
                              int planes, int n, int base_log, void* stream) {
-  if (batch <= 0 || n < 32 || (n & (n - 1)) || planes < 1 ||
-      planes > kMaxPlanes || base_log < 1 || base_log > 8)
+  if (!shape_ok(batch, kp1, lvl, planes, n, base_log))
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  int max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t table = static_cast<size_t>(lvl) * kp1 * kp1 * planes *
                        (2 * n + kTablePad);
-  const size_t row = static_cast<size_t>(lvl) * kp1 * n + kRowPad;
+  static const int cands[] = {64, 32, 16, 0};
   int bt = 0;
-  for (int cand = 64; cand >= 16; cand /= 2) {
-    if (table + cand * row <= static_cast<size_t>(max_smem)) {
-      bt = cand;
-      break;
-    }
-  }
-  if (bt == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(table + bt * row);
+  size_t smem = 0;
+  cudaError_t err = pick_batch_tile(table, digit_row_bytes(lvl, kp1, n),
+                                    cands, &bt, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(cmux_step_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + bt - 1) / bt;
   cmux_step_kernel<<<grid, kThreads, smem,

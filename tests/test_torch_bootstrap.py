@@ -3,8 +3,9 @@
 The key is made once per module with the port's keygen (seeded
 torch.Generator) and carried to JAX as numpy arrays (convert.py); JAX
 keygen is too slow for the default tier.  JAX runs its "pallas" backend in
-interpret mode and its "mxu" backend; the port runs "kernel" (plain
-version on the CPU) and "mxu".  Tolerance: exact equality -- every value
+interpret mode and its "mxu" backend; the port runs its per-step backend
+("pallas", plain version on the CPU) and "mxu"; the fused backends are in
+tests/test_torch_backends.py.  Tolerance: exact equality -- every value
 is an integer mod 2^32 -- and decryption must return the messages."""
 import dataclasses
 import os
@@ -203,11 +204,19 @@ def test_engine_device_and_backend_rules():
         with pytest.raises(RuntimeError):
             TfheEngine(p)
     with pytest.raises(ValueError):
-        TfheEngine(p, ext_backend="pallas", device="cpu")
-    with pytest.raises(ValueError):
-        TfheEngine(TFHE_BOOT_128_K4T(), device="cpu")
-    assert TfheEngine(TFHE_BOOT_128_K4T(), ext_backend="mxu",
-                      device="cpu").backend == "mxu"
+        TfheEngine(p, ext_backend="v1", device="cpu")
+    for name, backend in (("pallas", "pallas"), ("kernel", "pallas"),
+                          ("pallas_fused", "pallas_fused"),
+                          ("mxu_fused", "mxu_fused"), ("mxu", "mxu")):
+        assert TfheEngine(p, ext_backend=name,
+                          device="cpu").backend == backend
+    for name in (None, "pallas", "pallas_fused"):
+        with pytest.raises(ValueError):
+            kw = {} if name is None else {"ext_backend": name}
+            TfheEngine(TFHE_BOOT_128_K4T(), device="cpu", **kw)
+    for name in ("mxu", "mxu_fused"):
+        assert TfheEngine(TFHE_BOOT_128_K4T(), ext_backend=name,
+                          device="cpu").backend == name
 
 
 @pytest.mark.slow

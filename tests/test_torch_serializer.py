@@ -1,6 +1,7 @@
 """The port's FHEB blob and bootstrap-key serializer vs the JAX package's:
 each side reads what the other wrote (small keys, in memory), and the port
-reads the committed K4 key.  Tolerance: exact equality of every array."""
+reads the committed K4 key; and the port's BootstrapKeyCache, in tmp_path
+only.  Tolerance: exact equality of every array."""
 import dataclasses
 import os
 
@@ -18,9 +19,10 @@ from node_fhe_accelerate_tpu.core.keycache import (
 from node_fhe_accelerate_tpu_torch.convert import bsk_from_numpy, bsk_to_numpy
 from node_fhe_accelerate_tpu_torch.core import serializer
 from node_fhe_accelerate_tpu_torch.core.bootstrap import (
-    TFHE_BOOT_128_K4, TfheParams)
+    TFHE_BOOT_128_K4, TfheEngine, TfheParams)
 from node_fhe_accelerate_tpu_torch.core.keycache import (
-    deserialize_bootstrap_key, serialize_bootstrap_key)
+    RNG_TAG, BootstrapKeyCache, deserialize_bootstrap_key, peek_blob_origin,
+    serialize_bootstrap_key)
 
 torch.set_num_threads(2)
 
@@ -106,3 +108,113 @@ def test_port_reads_committed_k4_key():
     assert bsk.ggsw_i8.dtype == torch.int8
     assert tuple(bsk.ksk_a.shape) == (1024, 8, 630)
     assert tuple(bsk.ksk_b.shape) == (1024, 8)
+
+
+# ---------------------------------------------------------------------------
+# BootstrapKeyCache
+# ---------------------------------------------------------------------------
+
+CACHE_PARAMS = TfheParams(n_lwe=4, poly_degree=128, glwe_dim=1,
+                          pbs_base_log=7, pbs_level=3, ks_base_log=4,
+                          ks_level=8, lwe_noise_std=0.0, glwe_noise_std=0.0)
+
+
+def cache_engine():
+    return TfheEngine(CACHE_PARAMS, ext_backend="mxu", device="cpu")
+
+
+def dir_state(path):
+    return {name: open(os.path.join(path, name), "rb").read()
+            for name in sorted(os.listdir(path))
+            if os.path.isfile(os.path.join(path, name))}
+
+
+def untagged_blob(bsk, seed):
+    """The key as the JAX package serializes it: seed, no generator tag."""
+    g, ka, kb = bsk_to_numpy(bsk)
+    jkey = JaxKey(ggsw_i8=jnp.asarray(g), ksk_a=jnp.asarray(ka),
+                  ksk_b=jnp.asarray(kb),
+                  params=JaxParams(**dataclasses.asdict(bsk.params)))
+    return jax_serialize(jkey, seed=seed)
+
+
+def test_cache_round_trip_hits_and_keys_match(tmp_path, monkeypatch):
+    eng = cache_engine()
+    cache = BootstrapKeyCache(str(tmp_path / "kc"))
+    lwe_sk, glwe_sk, bsk = cache.get_or_generate(eng, 5)
+    files = os.listdir(cache.dir)
+    assert len(files) == 1 and files[0].endswith(".fheb")
+    with open(os.path.join(cache.dir, files[0]), "rb") as f:
+        assert peek_blob_origin(f.read()) == (5, RNG_TAG)
+
+    def no_keygen(*a, **k):
+        raise AssertionError("a cache hit must not run keygen")
+    monkeypatch.setattr(eng, "generate_bootstrap_key", no_keygen)
+    lwe2, glwe2, bsk2 = cache.get_or_generate(eng, 5)
+    assert torch.equal(lwe_sk, lwe2) and torch.equal(glwe_sk, glwe2)
+    assert_key_equal(bsk_to_numpy(bsk2), bsk_to_numpy(bsk))
+    assert os.listdir(cache.dir) == files
+    # the secret keys returned with a hit are the cached key's own
+    msgs = torch.tensor([0, 1, 1, 0])
+    ct = eng.lwe_encrypt(torch.Generator().manual_seed(1), msgs, lwe2)
+    assert torch.equal(eng.lwe_decrypt(eng.bootstrap(ct, bsk2), lwe2),
+                       msgs.to(torch.int32))
+    # another seed is another entry
+    assert cache.load(eng, 6)[2] is None
+
+
+def test_cache_refuses_blob_without_generator_tag(tmp_path):
+    """A blob the JAX package wrote (no tag) sits under the cache's own name
+    and under another name: neither is returned, although
+    ``deserialize_bootstrap_key`` reads it."""
+    eng = cache_engine()
+    cache = BootstrapKeyCache(str(tmp_path / "kc"))
+    _, _, bsk = cache.get_or_generate(eng, 7)
+    canonical = cache._path(eng, 7)
+    raw = untagged_blob(bsk, 7)
+    assert deserialize_bootstrap_key(raw, CACHE_PARAMS, device="cpu")
+    assert peek_blob_origin(raw) == (7, None)
+    other = os.path.join(cache.dir, "0" * 32 + ".fheb")
+    for path in (canonical, other):
+        with open(path, "wb") as f:
+            f.write(raw)
+    assert cache.load(eng, 7)[2] is None
+    assert not os.path.exists(canonical)        # evicted from its own dir
+    with open(other, "rb") as f:                # scanned, not adopted
+        assert f.read() == raw
+    assert cache.get_or_generate(eng, 7)[2] is not None
+
+
+def test_cache_adopts_compatible_tagged_blob_of_its_own_directory(tmp_path):
+    eng = cache_engine()
+    cache = BootstrapKeyCache(str(tmp_path / "kc"))
+    _, _, bsk = cache.get_or_generate(eng, 8)
+    canonical = cache._path(eng, 8)
+    moved = os.path.join(cache.dir, "f" * 32 + ".fheb")
+    os.replace(canonical, moved)
+    assert cache.load(eng, 9)[2] is None        # the seed must match
+    got = cache.load(eng, 8)[2]
+    assert_key_equal(bsk_to_numpy(got), bsk_to_numpy(bsk))
+    assert os.path.exists(canonical) and os.path.exists(moved)
+
+
+def test_cache_touches_no_file_of_another_directory(tmp_path, monkeypatch):
+    """With the default directory under a working directory that holds a
+    JAX-style ``.keycache`` blob: the cache writes to ``.keycache/torch``
+    only and leaves the parent's files as they were."""
+    monkeypatch.chdir(tmp_path)
+    eng = cache_engine()
+    _, _, bsk = BootstrapKeyCache(str(tmp_path / "seed")) \
+        .get_or_generate(eng, 3)
+    os.makedirs(".keycache")
+    with open(os.path.join(".keycache", "a" * 32 + ".fheb"), "wb") as f:
+        f.write(untagged_blob(bsk, 3))
+    with open(os.path.join(".keycache", "b" * 32 + ".fheb"), "wb") as f:
+        f.write(b"not a blob")
+    before = dir_state(".keycache")
+    cache = BootstrapKeyCache()
+    assert cache.dir == os.path.join(".keycache", "torch")
+    cache.get_or_generate(eng, 3)
+    cache.get_or_generate(eng, 3)
+    assert dir_state(".keycache") == before
+    assert len(os.listdir(cache.dir)) == 1
