@@ -9,7 +9,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. the card's name and power limit, torch/CUDA versions, and the build of
    every kernel source under csrc/ (one nvcc each for sm_90a, side by side,
    into build/), with the compiler's register and spill lines;
-2. every kernel vs its plain PyTorch version, bit for bit, at batch 4096:
+2. every kernel vs its plain PyTorch version, bit for bit: the NTT
+   kernels (ntt.cu: forward, inverse, negacyclic product) at the JAX
+   package's bench shapes (N=1024/B=8192, 4096/2048, 16384/512 with
+   Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, and
+   against the big-integer oracle on a few rows), at the bootstrap's shapes
+   (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560) and at a ragged
+   batch; then, at batch 4096,
    one CMux step through cmux_step and through cmux_step_slabs (v3, v2) on
    a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
    TFHE_BOOT_128_L2-shaped row (k=1, N=1024); the whole ladder through
@@ -27,9 +33,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    through "mxu_fused" and 3 through "pallas_fused" (one ladder launch per
    bootstrap, each ending in a synchronize, decode checked, bit-equal to
    the per-step backend), and a ``detect_duplicate`` with a known answer;
+   then the NTT paths, counts likewise: keys from one generator state at
+   TFHE_BOOT_128_K4 through "ntt" and "crt", one bootstrap of 256 each,
+   bit-equal to "pallas" on its key from the same state (630 forward and
+   630 inverse NTT launches through "ntt", twice that through "crt");
+   TFHE_256 (n=1024, N=4096, k=1, Bg=2^10, l=3, the JAX bench's
+   pbs_n1024_N4096_l3_tfhe256 row) through "crt": keygen and one
+   decode-checked bootstrap of TFHE256_BATCH (2048 forward and 2048 inverse
+   launches); and the CRT ring product (one fused product launch per
+   prime) against the float64 mask product at N=4096;
 5. timings with CUDA events for each kernel (kernel, plain version, its
-   bound, and torch._int_mm on the same int8 contraction as a yardstick),
-   the key switch, and bootstraps/s per backend.
+   bound, and torch._int_mm on the same int8 contraction as a yardstick;
+   no PyTorch call computes an NTT mod q, so the NTT kernels have none),
+   the key switch, bootstraps/s per backend, and the time of one TFHE_256
+   "crt" step split into its NTT launches and the plain work around them.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,11 +66,22 @@ K4_BLOB = os.path.join(ROOT, ".keycache",
                        "7f5658596c1857e89c056b7e0b17cabf.fheb")
 BATCH = 4096
 CHAINED = 3
+NTT_BATCH = 256          # the NTT-backend bootstraps at K4
+TFHE256_BATCH = 256      # the JAX bench's batch for the TFHE_256 row
 
 # Published dense peaks (NVIDIA data sheets): int8 tensor-core ops/s and
 # device-memory bytes/s, at the full power limit.
 PEAKS = {"H100 SXM": (1979e12, 3.35e12), "H100 PCIe": (1513e12, 2.0e12),
          "H100 NVL": (1671e12, 3.9e12), "H200": (1979e12, 4.8e12)}
+
+
+# 32-bit integer multiplies per clock per SM on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput); times the
+# SM count and the card's maximum SM clock gives the INT32 multiply rate.
+INT32_MUL_PER_SM_CLK = 64
+# 32-bit multiplies of one 64-bit Montgomery product: the 64x64->128
+# product (8), its low half times -q^-1 (4), m*q (8).
+MONT_MULS = 20
 
 
 def variant(name: str) -> str:
@@ -85,6 +113,24 @@ def bound(macs, nbytes, peak_ops, peak_bytes):
     """Least time in ms for `macs` int8 MACs (2 ops each) at the int8 peak
     and `nbytes` at the memory rate; the larger wins."""
     t_ops, t_bytes = 2 * macs / peak_ops, nbytes / peak_bytes
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ntt_bound(kind, b, n, mul_rate, peak_bytes):
+    """(ms, bound_by) of one NTT launch over b polynomials of degree n:
+    its 32-bit multiplies at the INT32 rate against its bytes (each input
+    plane read once, each output plane written once) at the memory rate."""
+    logn = n.bit_length() - 1
+    butterflies = b * (n // 2) * logn
+    if kind == "forward":
+        monts, nbytes = butterflies, 16 * b * n
+    elif kind == "inverse":
+        monts, nbytes = butterflies + b * n, 16 * b * n
+    else:   # two forwards, the pointwise product (2), inverse, scale
+        monts, nbytes = 3 * butterflies + 3 * b * n, 24 * b * n
+    t_ops = MONT_MULS * monts / mul_rate
+    t_bytes = nbytes / peak_bytes
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -155,11 +201,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from node_fhe_accelerate_tpu_torch.core.bootstrap import (
-        TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, LweCiphertext, TfheEngine)
+        TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, LweCiphertext, TfheEngine,
+        TfheParams)
     from node_fhe_accelerate_tpu_torch.core.keycache import (
         deserialize_bootstrap_key)
+    from node_fhe_accelerate_tpu_torch.core.params import Primes
+    from node_fhe_accelerate_tpu_torch.core.torus import P1, P2, P_EXT
     from node_fhe_accelerate_tpu_torch.ops import cmux, ladder
     from node_fhe_accelerate_tpu_torch.ops._build import build_all
+    from node_fhe_accelerate_tpu_torch.ops.ntt import (NTTContext,
+                                                       negacyclic_mul_np)
+    from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import NTT_LIB, PallasNTT
+    from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
 
     # ---- phase 1: card, versions, kernel builds
     smi = subprocess.run(
@@ -167,11 +220,20 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
     name = torch.cuda.get_device_name(0)
     peak_ops, peak_bytes = PEAKS[variant(name)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mul_rate = INT32_MUL_PER_SM_CLK * sms * max_sm_mhz * 1e6
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-        f"{sys.version.split()[0]} card {name} ({variant(name)} peaks)")
-    libs = [cmux.STEP_LIB, cmux.SLABS_LIB, ladder.TILES_LIB, ladder.STEPS_LIB]
+        f"{sys.version.split()[0]} card {name} ({variant(name)} peaks); "
+        f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: {mul_rate:.4e} 32-bit "
+        "integer multiplies/s")
+    libs = [cmux.STEP_LIB, cmux.SLABS_LIB, ladder.TILES_LIB, ladder.STEPS_LIB,
+            NTT_LIB]
     t0 = time.perf_counter()
     build_all(libs)
     log(f"phase 1: {len(libs)} kernel sources built side by side and "
@@ -182,12 +244,67 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     dev = torch.device("cuda")
     err = dict.fromkeys(["cmux_step", "v3", "v2", "ladder_tiles",
-                         "ladder_steps"], 0)
+                         "ladder_steps", "ntt"], 0)
 
     def worse(key, value):
         err[key] = max(err[key], value)
 
     # ---- phase 2: every kernel vs its plain version
+    # the NTT kernels against NTTContext, on canonical random residues
+    ntts = {}
+
+    def pntt(n, q):
+        if (n, q) not in ntts:
+            ntts[n, q] = PallasNTT(NTTContext(n, q))
+        return ntts[n, q]
+
+    def rand_planes(b, n, q):
+        v = torch.randint(0, q, (b, n), generator=gen, dtype=torch.int64,
+                          device="cuda")
+        return v.to(torch.int32), (v >> 32).to(torch.int32)
+
+    def check_planes(label, got, want):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{label}: kernel != plain version "
+                                     f"({int((g != w).sum())} differ)")
+        log(f"phase 2 {label}: kernel == plain (bit-exact), batch "
+            f"{got[0].shape[0]}")
+
+    q40, q60 = Primes.Q_40_1, Primes.Q_60_1
+    for label, deg, b, q in (("bench Q_40_1", 1024, 8192, q40),
+                             ("bench Q_40_1", 4096, 2048, q40),
+                             ("bench Q_40_1", 16384, 512, q40),
+                             ("bench Q_60_1", 16384, 512, q60),
+                             ("path P1", 4096, 1536, P1),
+                             ("path P2", 4096, 1536, P2),
+                             ("path P_EXT", 256, 2560, P_EXT),
+                             ("ragged P1", 4096, 24, P1),
+                             ("ragged P_EXT", 256, 24, P_EXT)):
+        pk, a = pntt(deg, q), rand_planes(b, deg, q)
+        fa = pk.forward(a)
+        check_planes(f"ntt forward {label} N={deg}", fa, pk.ntt.forward(a))
+        back = pk.inverse(fa)
+        check_planes(f"ntt inverse {label} N={deg}", back,
+                     pk.ntt.inverse(fa))
+        check_planes(f"ntt inverse(forward) {label} N={deg} == input", back,
+                     a)
+    for label, deg, b, q in (("bench Q_40_1", 1024, 2048, q40),
+                             ("ragged P1", 4096, 24, P1)):
+        pk = pntt(deg, q)
+        a, c = rand_planes(b, deg, q), rand_planes(b, deg, q)
+        got = pk.negacyclic_mul(a, c)
+        check_planes(f"ntt negacyclic_mul {label} N={deg}", got,
+                     pk.ntt.negacyclic_mul(a, c))
+        an, cn, gn = u64_to_np(a), u64_to_np(c), u64_to_np(got)
+        for i in range(3):
+            if not (gn[i] == negacyclic_mul_np(an[i], cn[i], q)).all():
+                raise AssertionError(f"ntt negacyclic_mul {label}: row {i} "
+                                     "!= the big-integer oracle")
+        log(f"phase 2 ntt negacyclic_mul {label}: rows 0-2 == "
+            "negacyclic_mul_np")
+    del a, c, fa, back, got
     pk4 = TFHE_BOOT_128_K4()
     with open(K4_BLOB, "rb") as f:
         bsk = deserialize_bootstrap_key(f.read(), pk4, device=dev)
@@ -325,13 +442,15 @@ def main() -> int:
                 "cmux_step_slabs_v3": cmux.cmux_step_slabs.launches["v3"],
                 "cmux_step_slabs_v2": cmux.cmux_step_slabs.launches["v2"],
                 "ladder_tiles": ladder.blind_rotate_fused.launches,
-                "ladder_steps": ladder.blind_rotate_fused_steps.launches}
+                "ladder_steps": ladder.blind_rotate_fused_steps.launches,
+                **{f"ntt_{k}": v for k, v in PallasNTT.launches.items()}}
 
     def zero_counts():
         cmux.cmux_step.launches = 0
         cmux.cmux_step_slabs.launches.update(v3=0, v2=0)
         ladder.blind_rotate_fused.launches = 0
         ladder.blind_rotate_fused_steps.launches = 0
+        PallasNTT.launches.update(forward=0, inverse=0, negacyclic_mul=0)
 
     def expect_counts(path, **want):
         got = counts()
@@ -416,6 +535,105 @@ def main() -> int:
     log(f"phase 4: detect_duplicate through mxu_fused: {dup.tolist()} "
         "as expected, 2 ladder launches")
 
+    # the NTT backends at K4: keys from one generator state, one per form
+    state = torch.Generator(device="cuda").manual_seed(args.seed + 1) \
+        .get_state()
+
+    def keys_from_state(backend, params):
+        e = TfheEngine(params, ext_backend=backend, device=dev)
+        g = torch.Generator(device="cuda")
+        g.set_state(state)
+        lsk, gsk = e.lwe_keygen(g), e.glwe_keygen(g)
+        return e, lsk, e.generate_bootstrap_key(g, lsk, gsk), g
+
+    e_ref, lsk_n, key_ref, g_n = keys_from_state("pallas", pk4)
+    msgs_n = torch.arange(NTT_BATCH, device=dev) % 2
+    ct_n = e_ref.lwe_encrypt(g_n, msgs_n, lsk_n)
+    tp4 = e_ref.default_test_poly()
+    want_n = e_ref.bootstrap_with_test_poly(ct_n, key_ref, tp4)
+    for backend, per_step in (("ntt", 1), ("crt", 2)):
+        e_b, lsk_b, key_b, _ = keys_from_state(backend, pk4)
+        if not torch.equal(lsk_b, lsk_n):
+            raise AssertionError(f"phase 4: {backend} keygen drew other "
+                                 "secret keys from the same state")
+        zero_counts()
+        (out,), secs = chained(e_b, ct_n, key_b, tp4, 1)
+        got = expect_counts(f"{backend} K4", ntt_forward=per_step * pk4.n_lwe,
+                            ntt_inverse=per_step * pk4.n_lwe)
+        if not same_lwe(out, want_n):
+            raise AssertionError(f"phase 4: {backend} bootstrap differs from "
+                                 "pallas on keys from the same state")
+        dec = e_b.lwe_decrypt(out, lsk_n)
+        if not torch.equal(dec, msgs_n.to(torch.int32)):
+            raise AssertionError(f"phase 4: {backend} K4 decode mismatch")
+        rates[f"{backend} K4"] = NTT_BATCH / secs[0]
+        log(f"phase 4: {backend} at K4, 1 bootstrap of {NTT_BATCH}: "
+            f"{secs[0]:.3f} s -> {rates[f'{backend} K4']:.1f} bootstraps/s; "
+            f"== pallas (bit-exact); decode ok; ntt forward/inverse "
+            f"launches {got['ntt_forward']}/{got['ntt_inverse']}")
+        del e_b, key_b, out
+    del key_ref, want_n
+
+    # the slice's full-width path: TFHE_256 through "crt", as the JAX
+    # package's bench builds it (utils/bench_suite.py, pbs_n1024_N4096_l3)
+    p256 = TfheParams(n_lwe=1024, poly_degree=4096, glwe_dim=1,
+                      pbs_base_log=10, pbs_level=3, ks_base_log=4, ks_level=8,
+                      lwe_noise_std=2.0 ** 10, glwe_noise_std=2.0 ** 4,
+                      plaintext_modulus=16)
+    e256 = TfheEngine(p256, ext_backend="crt", device=dev)
+    g256 = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    t0 = time.perf_counter()
+    lsk256, gsk256 = e256.lwe_keygen(g256), e256.glwe_keygen(g256)
+    key256 = e256.generate_bootstrap_key(g256, lsk256, gsk256)
+    torch.cuda.synchronize()
+    keygen256_s = time.perf_counter() - t0
+    crt_bytes = sum(x.numel() * 4 for pr in key256.ggsw_crt for x in pr)
+    log(f"phase 4: TFHE_256 crt keygen {keygen256_s:.2f} s, ggsw_crt "
+        f"{crt_bytes} bytes")
+    msgs256 = torch.arange(TFHE256_BATCH, device=dev) % 8
+    ct256 = e256.lwe_encrypt(g256, msgs256, lsk256)
+    zero_counts()
+    (out256,), secs = chained(e256, ct256, key256,
+                              e256.default_test_poly(), 1)
+    launches.update(
+        {k: v for k, v in expect_counts(
+            "TFHE_256 crt", ntt_forward=2 * p256.n_lwe,
+            ntt_inverse=2 * p256.n_lwe).items()
+         if k in ("ntt_forward", "ntt_inverse")})
+    dec = e256.lwe_decrypt(out256, lsk256)
+    if not torch.equal(dec, msgs256.to(torch.int32)):
+        raise AssertionError(f"phase 4: TFHE_256 decode mismatch in "
+                             f"{int((dec != msgs256).sum())} of "
+                             f"{TFHE256_BATCH}")
+    rates["crt TFHE_256"] = TFHE256_BATCH / secs[0]
+    log(f"phase 4: TFHE_256 crt, 1 bootstrap of {TFHE256_BATCH}: "
+        f"{secs[0]:.3f} s -> {rates['crt TFHE_256']:.2f} bootstraps/s; "
+        f"decode ok; ntt forward/inverse launches "
+        f"{launches['ntt_forward']}/{launches['ntt_inverse']}")
+    # the CRT ring product at N=4096: one fused launch per prime; equal to
+    # the engine's float64 mask product on the binary key, and to the plain
+    # CPU product on random torus polynomials
+    ring = e256.ring
+    masks = random_u32(gen, (TFHE256_BATCH, p256.poly_degree))
+    other = random_u32(gen, (TFHE256_BATCH, p256.poly_degree))
+    zero_counts()
+    prod_key = ring.multiply(masks, gsk256[0])
+    prod_rand = ring.multiply(masks, other)
+    torch.cuda.synchronize()
+    got = expect_counts("ring multiply", ntt_negacyclic_mul=4)
+    launches["ntt_negacyclic_mul"] = got["ntt_negacyclic_mul"]
+    if not torch.equal(prod_key,
+                       e256._mask_dot(masks.unsqueeze(-2), gsk256)):
+        raise AssertionError("phase 4: ring multiply != mask product")
+    rows = slice(0, 4)
+    if not torch.equal(prod_rand[rows].cpu(),
+                       ring.multiply(masks[rows].cpu(), other[rows].cpu())):
+        raise AssertionError("phase 4: ring multiply on the card != plain "
+                             "CPU product")
+    log(f"phase 4: ring multiply N=4096 batch {TFHE256_BATCH}: == float64 "
+        "mask product, == plain CPU product (rows 0-3); "
+        f"{launches['ntt_negacyclic_mul']} product launches")
+
     # ---- phase 5: timings
     lvl, planes = pk4.pbs_level, row.shape[-2]
     macs, io_bytes = step_work(BATCH, kp1, n, lvl, planes)
@@ -467,18 +685,113 @@ def main() -> int:
         log(f"phase 5: {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms:.4f} ms")
     log("phase 5: bootstraps/s " + ", ".join(
-        f"{b} {r:.1f}" for b, r in rates.items()))
+        f"{b} {r:.2f}" for b, r in rates.items()))
+
+    # the NTT kernels: at the TFHE_256 path's shapes (the JSON record), and
+    # at the JAX bench's and the K4 "ntt" path's shapes
+    kp256 = p256.glwe_dim + 1
+    fwd_b = p256.pbs_level * TFHE256_BATCH * kp256
+    inv_b = TFHE256_BATCH * kp256
+    ntt_rows = []
+
+    def time_ntt(kind, n, b, q, label):
+        pk = pntt(n, q)
+        a, c = rand_planes(b, n, q), rand_planes(b, n, q)
+        if kind == "negacyclic_mul":
+            run, plain = (lambda: pk.negacyclic_mul(a, c),
+                          lambda: pk.ntt.negacyclic_mul(a, c))
+        else:
+            run = lambda: getattr(pk, kind)(a)
+            plain = lambda: getattr(pk.ntt, kind)(a)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        b_ms, b_by = ntt_bound(kind, b, n, mul_rate, peak_bytes)
+        ntt_rows.append((kind, label, n, b, ms, plain_ms, b_ms, b_by))
+        log(f"phase 5: ntt {kind} {label} N={n} B={b}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            "library none (no PyTorch call computes an NTT mod q)")
+        return ms, plain_ms, (b_ms, b_by), None
+
+    times["ntt_forward"] = time_ntt("forward", 4096, fwd_b, P1,
+                                    "TFHE_256 path P1")
+    times["ntt_inverse"] = time_ntt("inverse", 4096, inv_b, P1,
+                                    "TFHE_256 path P1")
+    times["ntt_negacyclic_mul"] = time_ntt("negacyclic_mul", 4096,
+                                           TFHE256_BATCH, P1,
+                                           "ring multiply path P1")
+    kp4 = pk4.glwe_dim + 1
+    for kind, deg, b, q, label in (
+            ("forward", 4096, fwd_b, P2, "TFHE_256 path P2"),
+            ("inverse", 4096, inv_b, P2, "TFHE_256 path P2"),
+            ("forward", pk4.poly_degree, pk4.pbs_level * NTT_BATCH * kp4,
+             P_EXT, "K4 ntt path P_EXT"),
+            ("inverse", pk4.poly_degree, NTT_BATCH * kp4, P_EXT,
+             "K4 ntt path P_EXT"),
+            ("forward", 1024, 8192, q40, "bench Q_40_1"),
+            ("forward", 4096, 2048, q40, "bench Q_40_1"),
+            ("forward", 16384, 512, q40, "bench Q_40_1"),
+            ("forward", 16384, 512, q60, "bench Q_60_1"),
+            ("inverse", 1024, 8192, q40, "bench Q_40_1"),
+            ("inverse", 16384, 512, q40, "bench Q_40_1"),
+            ("negacyclic_mul", 1024, 2048, q40, "bench poly_mul Q_40_1")):
+        time_ntt(kind, deg, b, q, label)
+
+    # one TFHE_256 "crt" step, split into its NTT launches and the plain
+    # torch work around them
+    acc256 = random_u32(gen, (TFHE256_BATCH, kp256, p256.poly_degree))
+    rot256 = torch.randint(0, 2 * p256.poly_degree, (TFHE256_BATCH,),
+                           generator=gen, dtype=torch.int32, device="cuda")
+    row256 = tuple((lo[0], hi[0]) for lo, hi in key256.ggsw_crt)
+    ctxs = (ring.ntt1.ctx, ring.ntt2.ctx)
+    rotated = ring.rotate(acc256, rot256[:, None])
+    digits = e256._digit_rows(rotated - acc256)
+    dplanes = [ring._digits_to_planes(digits, t)
+               for t in (ring.ntt1, ring.ntt2)]
+    d_hat = ring.forward_digits(digits)
+    accs = [ring._sum_products(ctxs[i], *e256._pair_rows(d_hat[i],
+                                                        row256[i]), -3)
+            for i in range(2)]
+    rs = (ring.pntt1.inverse(accs[0]), ring.pntt2.inverse(accs[1]))
+    parts = {
+        "step": lambda: e256.cmux(row256, acc256, ring.rotate(
+            acc256, rot256[:, None])),
+        "rotate + difference": lambda: ring.rotate(
+            acc256, rot256[:, None]) - acc256,
+        "decompose": lambda: e256._digit_rows(rotated - acc256),
+        "digits to planes": lambda: [ring._digits_to_planes(digits, t)
+                                     for t in (ring.ntt1, ring.ntt2)],
+        "K6 forward x2": lambda: (ring.pntt1.forward(dplanes[0]),
+                                  ring.pntt2.forward(dplanes[1])),
+        "pointwise products + sum": lambda: [
+            ring._sum_products(ctxs[i], *e256._pair_rows(d_hat[i],
+                                                         row256[i]), -3)
+            for i in range(2)],
+        "K7 inverse x2": lambda: (ring.pntt1.inverse(accs[0]),
+                                  ring.pntt2.inverse(accs[1])),
+        "CRT to torus": lambda: ring._crt_to_torus(*rs),
+    }
+    split = {k: cuda_ms(f, 5, warmup=1) for k, f in parts.items()}
+    kernel_ms = split["K6 forward x2"] + split["K7 inverse x2"]
+    log(f"phase 5: TFHE_256 crt step, batch {TFHE256_BATCH}: "
+        f"{split['step']:.4f} ms; NTT launches {kernel_ms:.4f} ms = "
+        f"{100 * kernel_ms / split['step']:.1f}% of the step; " + "; ".join(
+            f"{k} {v:.4f} ms ({100 * v / split['step']:.1f}%)"
+            for k, v in split.items() if k != "step"))
 
     src = "node_fhe_accelerate_tpu_torch/csrc/"
     ref = "node_fhe_accelerate_tpu/ops/pallas_cmux.py:"
-    table = [("cmux_step", "cmux_step.cu", 144, "cmux_step"),
-             ("cmux_step_slabs_v3", "cmux_step_slabs.cu", 183, "v3"),
-             ("cmux_step_slabs_v2", "cmux_step_slabs.cu", 226, "v2"),
-             ("ladder_tiles", "ladder_tiles.cu", 282, "ladder_tiles"),
-             ("ladder_steps", "ladder_steps.cu", 459, "ladder_steps")]
+    ntt_ref = "node_fhe_accelerate_tpu/ops/ntt_pallas.py:"
+    table = [("cmux_step", "cmux_step.cu", ref + "144", "cmux_step"),
+             ("cmux_step_slabs_v3", "cmux_step_slabs.cu", ref + "183", "v3"),
+             ("cmux_step_slabs_v2", "cmux_step_slabs.cu", ref + "226", "v2"),
+             ("ladder_tiles", "ladder_tiles.cu", ref + "282", "ladder_tiles"),
+             ("ladder_steps", "ladder_steps.cu", ref + "459", "ladder_steps"),
+             ("ntt_forward", "ntt.cu", ntt_ref + "179", "ntt"),
+             ("ntt_inverse", "ntt.cu", ntt_ref + "179", "ntt"),
+             ("ntt_negacyclic_mul", "ntt.cu", ntt_ref + "227", "ntt")]
     record = {"kernels": [{
         "name": kname, "route": "cuda", "source": src + source,
-        "replaces": ref + str(line), "launches": launches[kname],
+        "replaces": line, "launches": launches[kname],
         "max_abs_err": err[ekey], "ms": times[kname][0],
         "plain_ms": times[kname][1], "bound_ms": times[kname][2][0],
         "bound_by": times[kname][2][1], "library_ms": times[kname][3]}

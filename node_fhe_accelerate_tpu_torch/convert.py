@@ -25,14 +25,38 @@ def _i8_tensor(arr, dev):
     return torch.from_numpy(a).to(dev)
 
 
+def _u32_nested(x, dev):
+    """uint32 arrays nested in tuples (the JAX limb-plane forms) -> the
+    same nesting of int32 tensors."""
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return tuple(_u32_nested(v, dev) for v in x)
+    return u32_to_tensor(x, dev)
+
+
+def _np_nested(x):
+    if isinstance(x, tuple):
+        return tuple(_np_nested(v) for v in x)
+    if x.dtype == torch.int8:
+        return x.detach().cpu().numpy()
+    return tensor_to_u32(x)
+
+
 def bsk_from_numpy(ggsw_i8, ksk_a, ksk_b, params: TfheParams,
-                   device=None, ggsw_tiles=None, ggsw_slabs=None
-                   ) -> BootstrapKey:
-    """int8 GGSW planes and uint32 KSK arrays -> the port's BootstrapKey;
-    the prepared ``ggsw_tiles`` / ``ggsw_slabs`` of a JAX key carry across
-    field by field where given."""
+                   device=None, ggsw_tiles=None, ggsw_slabs=None,
+                   ggsw_ext=None, ggsw_crt=None) -> BootstrapKey:
+    """GGSW forms and uint32 KSK arrays -> the port's BootstrapKey.
+
+    ``ggsw_i8``: int8 digit planes (or None for a key of another form);
+    ``ggsw_ext``: the (lo, hi) uint32 P_EXT planes of an "ntt" key;
+    ``ggsw_crt``: ((lo1, hi1), (lo2, hi2)) of a "crt" key; the prepared
+    ``ggsw_tiles`` / ``ggsw_slabs`` of a JAX key carry across field by
+    field where given."""
     dev = resolve_device(device)
     return BootstrapKey(ggsw_i8=_i8_tensor(ggsw_i8, dev),
+                        ggsw_ext=_u32_nested(ggsw_ext, dev),
+                        ggsw_crt=_u32_nested(ggsw_crt, dev),
                         ksk_a=u32_to_tensor(ksk_a, dev),
                         ksk_b=u32_to_tensor(ksk_b, dev), params=params,
                         ggsw_tiles=_i8_tensor(ggsw_tiles, dev),
@@ -40,8 +64,15 @@ def bsk_from_numpy(ggsw_i8, ksk_a, ksk_b, params: TfheParams,
 
 
 def bsk_to_numpy(bsk: BootstrapKey):
-    """BootstrapKey -> (ggsw_i8 int8, ksk_a uint32, ksk_b uint32)."""
-    return (bsk.ggsw_i8.detach().cpu().numpy(), tensor_to_u32(bsk.ksk_a),
+    """BootstrapKey -> (ggsw, ksk_a uint32, ksk_b uint32), ggsw being the
+    GGSW form the key carries, with the JAX key's nesting: int8 planes
+    (``ggsw_i8``), else (lo, hi) uint32 (``ggsw_ext``), else
+    ((lo1, hi1), (lo2, hi2)) (``ggsw_crt``)."""
+    ggsw = next((g for g in (bsk.ggsw_i8, bsk.ggsw_ext, bsk.ggsw_crt)
+                 if g is not None), None)
+    if ggsw is None:
+        raise ValueError("the key carries no GGSW form")
+    return (_np_nested(ggsw), tensor_to_u32(bsk.ksk_a),
             tensor_to_u32(bsk.ksk_b))
 
 

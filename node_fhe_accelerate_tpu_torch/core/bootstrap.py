@@ -20,11 +20,21 @@ External-product backends, under the reference's names:
   ``prepare_bsk(form="slabs")``.
 * ``"mxu"``: the plain ``external_product_mxu`` algebra (rotate, then
   cmux), the reference the kernels are held against.
+* ``"ntt"``: the single-prime external product over P_EXT
+  (``external_product``) against a key stored NTT-resident in Montgomery
+  form (``ggsw_ext``); per step one forward NTT of the digits and one
+  inverse NTT of the (k+1) outputs.
+* ``"crt"``: the same over both CRT primes (``external_product_crt``,
+  key ``ggsw_crt``), exact for every preset gadget, including TFHE_256's
+  Bg = 2^10, l = 3 at N = 4096 that the int8 bound and P_EXT both reject;
+  per step two forward and two inverse NTT launches.
 
-For a CUDA tensor the first three launch hand-written Hopper kernels and
-nothing else; for a CPU tensor each takes its plain PyTorch version.  The
-reference's "ntt" and "crt" backends and its adaptive "auto" race are not
-ported yet.
+For a CUDA tensor the kernel backends launch hand-written Hopper kernels
+(the CMux kernels, or the NTT kernels of ops/ntt_pallas.py for "ntt" and
+"crt", whose pointwise accumulation and CRT recombination stay plain
+PyTorch as they stay XLA in the reference); for a CPU tensor each takes its
+plain PyTorch version.  The reference's adaptive "auto" race is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from ..ops.cmux import (build_all_step_slabs, build_all_step_tiles,
                         cmux_step, external_product_plain)
 from ..ops.ladder import blind_rotate_fused, blind_rotate_fused_steps
 from ..ops.u32 import lshr, matmul_mod32
-from .torus import TorusRing
+from .torus import P1, P2, TorusRing
 
 __all__ = [
     "TfheParams", "TFHE_BOOT_128", "TFHE_BOOT_128_L2", "TFHE_BOOT_128_K4",
@@ -125,12 +135,17 @@ class GlweCiphertext:
 
 @dataclass
 class BootstrapKey:
-    """GGSW(s_i) per LWE key bit, in int8 digit-plane form, plus the LWE
-    key-switch key.
+    """GGSW(s_i) per LWE key bit, plus the LWE key-switch key.  The GGSW
+    matrix is stored in the form the engine's backend consumes:
 
-    * ``ggsw_i8``: int8 (n, lvl, k+1, k+1, P, 2N), the signed base-256
-      digit planes of g~ = [g, -g] with the coefficient axis last (P is
-      4 - bsk_drop_planes);
+    * ``ggsw_i8`` (int8 backends): int8 (n, lvl, k+1, k+1, P, 2N), the
+      signed base-256 digit planes of g~ = [g, -g] with the coefficient
+      axis last (P is 4 - bsk_drop_planes);
+    * ``ggsw_ext`` ("ntt"): (lo, hi) int32 planes, each (n, k+1, lvl, k+1,
+      N), of the rows centered mod P_EXT, scaled by R = 2^64 (Montgomery
+      form) and NTT'd;
+    * ``ggsw_crt`` ("crt"): ((lo1, hi1), (lo2, hi2)), the rows' NTT forms
+      mod P1 and mod P2 in that layout;
     * ``ksk_a``: int32 (kN, ks_level, n); ``ksk_b``: int32 (kN, ks_level);
     * ``ggsw_tiles``: per-step diagonal Toeplitz tiles, int8
       (n, lvl, k+1, k+1, P, 2*nt-1, 128, 128), set by
@@ -139,12 +154,21 @@ class BootstrapKey:
       int8 (n, nt, lvl*(k+1)*N, (k+1)*P*128), set by
       ``prepare_bsk(form="slabs")``.
     """
-    ggsw_i8: Any
     ksk_a: Any
     ksk_b: Any
     params: TfheParams
+    ggsw_i8: Any = None
+    ggsw_ext: Any = None
+    ggsw_crt: Any = None
     ggsw_tiles: Any = None
     ggsw_slabs: Any = None
+
+
+def _row(g, i):
+    """Row i of a key form: a tensor, or nested tuples of limb planes."""
+    if isinstance(g, torch.Tensor):
+        return g[i]
+    return tuple(_row(x, i) for x in g)
 
 
 def _i32(v: int) -> int:
@@ -156,44 +180,52 @@ def _i32(v: int) -> int:
 class TfheEngine:
     """Batched torus-2^32 TFHE on one device."""
 
-    _UNPORTED = {
-        "auto": "the slice that ports utils/dispatch.py (the adaptive race)",
-        "ntt": "the slice that ports the modular/NTT core",
-        "crt": "the slice that ports the modular/NTT core",
-    }
+    _INT8 = ("pallas", "pallas_fused", "mxu_fused", "mxu")
 
     def __init__(self, params: TfheParams, ext_backend: str = "pallas",
                  device=None):
         """``ext_backend``: see the module docstring.  ``device`` defaults
         to CUDA and raises without a card; pass ``device="cpu"`` for the
         plain PyTorch path."""
-        if ext_backend in self._UNPORTED:
+        if ext_backend == "auto":
             raise NotImplementedError(
-                f"ext_backend {ext_backend!r} comes with "
-                f"{self._UNPORTED[ext_backend]}")
+                "ext_backend 'auto' comes with the slice that ports "
+                "utils/dispatch.py (the adaptive race)")
         if ext_backend == "kernel":
             ext_backend = "pallas"
-        if ext_backend not in ("pallas", "pallas_fused", "mxu_fused", "mxu"):
+        if ext_backend not in self._INT8 + ("ntt", "crt"):
             raise ValueError(f"unknown ext_backend {ext_backend!r}")
         if params.bsk_drop_planes and ext_backend not in ("mxu",
                                                           "mxu_fused"):
             raise ValueError(
                 "bsk_drop_planes requires ext_backend='mxu' or "
                 f"'mxu_fused' (got {ext_backend!r})")
-        if ext_backend != "mxu" and params.poly_degree % 128:
+        if ext_backend in ("pallas", "pallas_fused", "mxu_fused") \
+                and params.poly_degree % 128:
             raise ValueError(f"ext_backend {ext_backend!r} needs "
                              "poly_degree % 128 == 0")
+        self.ring = TorusRing(params.poly_degree)
         k, lvl = params.glwe_dim, params.pbs_level
-        # int32 accumulation bound: terms * (base/2) * 128 < 2^31
-        terms = (k + 1) * lvl * params.poly_degree
-        if terms * (1 << (params.pbs_base_log - 1)) * 128 >= (1 << 31):
+        half_base = 1 << (params.pbs_base_log - 1)
+        if ext_backend in self._INT8:
+            # int32 accumulation bound: terms * (base/2) * 128 < 2^31
+            terms = (k + 1) * lvl * params.poly_degree
+            if terms * half_base * 128 >= (1 << 31):
+                raise ValueError(
+                    "pbs_base_log/level/N too large for exact int32 "
+                    "accumulation on the int8 path")
+        elif ext_backend == "crt":
+            bound = (k + 1) * lvl * params.poly_degree * half_base * (1 << 31)
+            if 2 * bound >= P1 * P2:
+                raise ValueError("gadget exceeds even the dual-prime bound")
+        elif not self.ring.ext_bound_ok(params.pbs_base_log, (k + 1) * lvl):
             raise ValueError(
-                "pbs_base_log/level/N too large for exact int32 "
-                "accumulation on the int8 path")
+                "pbs_base_log/level too large for the single-prime "
+                "external product (P_EXT); use ext_backend=\"crt\" "
+                "(dual-prime) or reduce base_log")
         self.p = params
         self.backend = ext_backend
         self.device = resolve_device(device)
-        self.ring = TorusRing(params.poly_degree)
         self.t = params.plaintext_modulus
         self.delta = (1 << 32) // self.t
 
@@ -308,15 +340,16 @@ class TfheEngine:
     # ------------------------------------------------------------------
     # GGSW / bootstrap key generation
     # ------------------------------------------------------------------
-    def generate_bootstrap_key(self, gen: torch.Generator, lwe_sk,
-                               glwe_sk) -> BootstrapKey:
-        """GGSW(s_i) per LWE bit in int8 digit-plane form + key-switch key.
+    def ggsw_rows(self, gen: torch.Generator, lwe_sk,
+                  glwe_sk) -> torch.Tensor:
+        """GGSW(s_i) per LWE bit in the torus domain: int32
+        (n, k+1 rows j, lvl, k+1, N), the first draws of
+        ``generate_bootstrap_key``.
 
         GGSW(v) row (j, l) = GLWE(0) + v * g_l * E_j with
         g_l = 2^(32-(l+1)*base_log) and E_j the unit at component j."""
         p = self.p
-        n, k, lvl, N = p.n_lwe, p.glwe_dim, p.pbs_level, p.poly_degree
-        # (n, k+1 rows j, lvl, k+1, N)
+        n, k, lvl = p.n_lwe, p.glwe_dim, p.pbs_level
         ggsw = self.glwe_encrypt_zero(gen, glwe_sk,
                                       batch=(n, k + 1, lvl)).data
         gl = torch.tensor([_i32(1 << (32 - (l + 1) * p.pbs_base_log))
@@ -324,11 +357,32 @@ class TfheEngine:
                           device=self.device)
         for j in range(k + 1):
             ggsw[:, j, :, j, 0] += lwe_sk[:, None] * gl[None, :]
-        g = torch.movedim(ggsw, 2, 1)                     # (n, lvl, j, jp, N)
-        ghat = torch.cat([g, 0 - g], dim=-1)
-        d8 = i8ops.u32_to_i8_digits(ghat)                 # (..., 2N, P)
-        ggsw_i8 = torch.movedim(d8, -1, -2)               # (..., P, 2N)
-        ggsw_i8 = ggsw_i8[..., p.bsk_drop_planes:, :].contiguous()
+        return ggsw
+
+    def generate_bootstrap_key(self, gen: torch.Generator, lwe_sk,
+                               glwe_sk) -> BootstrapKey:
+        """The GGSW rows (``ggsw_rows``) in the form this engine's backend
+        consumes, + the key-switch key.  The random draws do not depend on
+        the backend: engines of different backends make the same key from
+        generators in the same state."""
+        p = self.p
+        n, k, N = p.n_lwe, p.glwe_dim, p.poly_degree
+        ggsw = self.ggsw_rows(gen, lwe_sk, glwe_sk)
+        forms = {}
+        if self.backend == "ntt":
+            # NTT-resident Montgomery form over the external-product prime
+            forms["ggsw_ext"] = self.ring.forward_ext_mont(ggsw)
+        elif self.backend == "crt":
+            # NTT-resident in both CRT primes (standard domain)
+            forms["ggsw_crt"] = self.ring.forward(ggsw)
+        else:
+            g = torch.movedim(ggsw, 2, 1)                 # (n, lvl, j, jp, N)
+            ghat = torch.cat([g, 0 - g], dim=-1)
+            d8 = i8ops.u32_to_i8_digits(ghat)             # (..., 2N, P)
+            ggsw_i8 = torch.movedim(d8, -1, -2)           # (..., P, 2N)
+            forms["ggsw_i8"] = \
+                ggsw_i8[..., p.bsk_drop_planes:, :].contiguous()
+        del ggsw
 
         # key-switch key from the extracted key (kN) to lwe_sk (n)
         s_in = glwe_sk.reshape(k * N)
@@ -338,8 +392,7 @@ class TfheEngine:
         ksk_a = self._uniform(gen, (k * N, p.ks_level, n))
         e = self._noise(gen, (k * N, p.ks_level), p.lwe_noise_std)
         ksk_b = self._dot_u32(ksk_a, lwe_sk) + e + s_in[:, None] * gk[None, :]
-        return BootstrapKey(ggsw_i8=ggsw_i8, ksk_a=ksk_a, ksk_b=ksk_b,
-                            params=p)
+        return BootstrapKey(ksk_a=ksk_a, ksk_b=ksk_b, params=p, **forms)
 
     def prepare_bsk(self, bsk: BootstrapKey,
                     form: str | None = None) -> BootstrapKey:
@@ -352,13 +405,14 @@ class TfheEngine:
         of the port reads them (the per-step kernel takes the key row as
         stored), they are kept for parity with the reference.  Default: the
         form this engine's backend consumes.  Idempotent; the returned key
-        drops into every int8 backend unchanged."""
+        drops into every int8 backend unchanged; a key without the int8 form
+        ("ntt", "crt") is returned as it is."""
         if form is None:
             form = "slabs" if self.backend == "mxu_fused" else "tiles"
         if form not in ("slabs", "tiles"):
             raise ValueError(f"unknown form {form!r}: 'slabs' or 'tiles'")
         field = "ggsw_" + form
-        if getattr(bsk, field) is not None:
+        if bsk.ggsw_i8 is None or getattr(bsk, field) is not None:
             return bsk
         build = build_all_step_slabs if form == "slabs" \
             else build_all_step_tiles
@@ -367,6 +421,50 @@ class TfheEngine:
     # ------------------------------------------------------------------
     # External product / CMux
     # ------------------------------------------------------------------
+    def _digit_rows(self, glwe_data):
+        """Gadget digits of glwe_data (..., k+1, N), as int32
+        (lvl, ..., k+1, N)."""
+        return self.ring.decompose(glwe_data, self.p.pbs_base_log,
+                                   self.p.pbs_level)
+
+    @staticmethod
+    def _pair_rows(d_hat, g_row):
+        """Align NTT-domain digits (lvl, ..., k+1 j, N) with one key row
+        (k+1 j, lvl, k+1 jp, N) for a sum over (j, l): digits become
+        (..., j*lvl, 1, N), the row (j*lvl, jp, N)."""
+        d = tuple(torch.movedim(x, 0, -2) for x in d_hat)  # (..., j, l, N)
+        d = tuple(x.reshape(x.shape[:-3] + (-1, 1, x.shape[-1])) for x in d)
+        g = tuple(x.reshape((-1,) + x.shape[2:]) for x in g_row)
+        return d, g
+
+    def external_product(self, ggsw_row_ext, glwe_data) -> torch.Tensor:
+        """GGSW (x) GLWE over the single prime P_EXT.
+
+        ggsw_row_ext: (lo, hi) Montgomery NTT planes (k+1, lvl, k+1, N) for
+        one LWE bit; glwe_data: int32 (..., k+1, N).  One forward NTT of
+        the digits, the pointwise Montgomery products summed over (j, l),
+        one inverse NTT of the k+1 outputs."""
+        ring = self.ring
+        d_hat = ring.forward_digits_ext(self._digit_rows(glwe_data))
+        d, g = self._pair_rows(d_hat, ggsw_row_ext)
+        acc = ring._sum_products(ring.ntt_ext.ctx, d, g, -3, mont=True)
+        return ring.inverse_ext_to_torus(acc)
+
+    def external_product_crt(self, ggsw_row_crt, glwe_data) -> torch.Tensor:
+        """GGSW (x) GLWE over both CRT primes, exact for every preset
+        gadget: |sum| <= terms*N*(B/2)*2^31 < P1*P2/2 ~ 2^76.
+
+        ggsw_row_crt: ((lo1, hi1), (lo2, hi2)) NTT planes, each
+        (k+1, lvl, k+1, N), for one LWE bit.  Per prime one forward NTT of
+        the digits and one inverse NTT of the k+1 outputs."""
+        ring = self.ring
+        d_hat = ring.forward_digits(self._digit_rows(glwe_data))
+        acc = []
+        for i, ctx in enumerate((ring.ntt1.ctx, ring.ntt2.ctx)):
+            d, g = self._pair_rows(d_hat[i], ggsw_row_crt[i])
+            acc.append(ring._sum_products(ctx, d, g, -3))
+        return ring.inverse(tuple(acc))
+
     def external_product_mxu(self, ggsw_i8_row, glwe_data) -> torch.Tensor:
         """GGSW (x) GLWE as one exact int8 contraction.
 
@@ -385,9 +483,15 @@ class TfheEngine:
                                       p.pbs_base_log, p.bsk_drop_planes)
 
     def cmux(self, ggsw_row, ct0_data, ct1_data) -> torch.Tensor:
-        """ct0 + GGSW (x) (ct1 - ct0)."""
-        return ct0_data + self.external_product_mxu(ggsw_row,
-                                                    ct1_data - ct0_data)
+        """ct0 + GGSW (x) (ct1 - ct0), through the external product of the
+        key row's form: "ntt" and "crt" take their NTT rows, every other
+        backend the int8 row."""
+        diff = ct1_data - ct0_data
+        if self.backend == "crt":
+            return ct0_data + self.external_product_crt(ggsw_row, diff)
+        if self.backend == "ntt":
+            return ct0_data + self.external_product(ggsw_row, diff)
+        return ct0_data + self.external_product_mxu(ggsw_row, diff)
 
     # ------------------------------------------------------------------
     # Blind rotate / sample extract / key switch
@@ -411,10 +515,7 @@ class TfheEngine:
         acc = acc.reshape(-1, kp1, n).contiguous()
         rots = self._rotations(lwe.a, lut_count).reshape(-1, p.n_lwe)
         rots = rots.t().contiguous()                      # (n_lwe, B)
-        g = bsk.ggsw_i8
-        if g.shape[0] != p.n_lwe:
-            raise ValueError(f"BSK has {g.shape[0]} rows, params say "
-                             f"n_lwe={p.n_lwe}")
+        g = self._key_form(bsk)
         if self.backend == "mxu_fused":
             # Slabs come from prepare_bsk(form="slabs"); without them they
             # are built here, on every call: prepare once in a service.
@@ -434,10 +535,28 @@ class TfheEngine:
             for i in range(p.n_lwe):
                 if self.backend == "pallas":
                     acc = cmux_step(acc, rots[i], g[i], p.pbs_base_log)
-                else:
+                else:                             # "mxu", "ntt", "crt"
                     rotated = self.ring.rotate(acc, rots[i][:, None])
-                    acc = self.cmux(g[i], acc, rotated)
+                    acc = self.cmux(_row(g, i), acc, rotated)
         return acc.reshape(lead + (kp1, n))
+
+    def _key_form(self, bsk: BootstrapKey):
+        """The key's GGSW form this backend consumes, checked against
+        n_lwe."""
+        field = {"ntt": "ggsw_ext", "crt": "ggsw_crt"}.get(self.backend,
+                                                          "ggsw_i8")
+        g = getattr(bsk, field)
+        if g is None:
+            raise ValueError(f"ext_backend {self.backend!r} needs a key with "
+                             f"{field}: make it with an engine of this "
+                             "backend")
+        rows = _row(g, slice(None))
+        while not isinstance(rows, torch.Tensor):
+            rows = rows[0]
+        if rows.shape[0] != self.p.n_lwe:
+            raise ValueError(f"BSK has {rows.shape[0]} rows, params say "
+                             f"n_lwe={self.p.n_lwe}")
+        return g
 
     def sample_extract(self, acc_data) -> LweCiphertext:
         """Constant coefficient as LWE of dim kN: a[i*N] = mask_i[0],

@@ -50,7 +50,10 @@ def serialize_bootstrap_key(bsk: BootstrapKey,
         arrays["seed"] = np.asarray(int(seed), dtype=np.int64)
     if rng is not None:
         arrays["rng"] = np.frombuffer(rng.encode(), dtype=np.uint8)
-    arrays["ggsw_i8"] = bsk.ggsw_i8.detach().cpu().numpy()
+    if bsk.ggsw_i8 is not None:
+        arrays["ggsw_i8"] = bsk.ggsw_i8.detach().cpu().numpy()
+    for name, planes in _plane_arrays(bsk):
+        arrays[name] = tensor_to_u32(planes)
     arrays["ksk_a"] = tensor_to_u32(bsk.ksk_a)
     arrays["ksk_b"] = tensor_to_u32(bsk.ksk_b)
     arrays["params_json"] = np.frombuffer(
@@ -67,7 +70,7 @@ def deserialize_bootstrap_key(raw: bytes,
                               expected_params: TfheParams | None = None,
                               device=None) -> BootstrapKey:
     """FHEB blob -> BootstrapKey on ``device``; validates params match and
-    that the blob carries the int8 GGSW form."""
+    that the blob carries a GGSW form (int8, "ntt" or "crt")."""
     dev = resolve_device(device)
     _, payload = deserialize_blob(raw, Magic.BOOTSTRAP_KEY)
     with np.load(io.BytesIO(payload)) as z:
@@ -76,14 +79,41 @@ def deserialize_bootstrap_key(raw: bytes,
             raise SerializationError(
                 f"bootstrap key params {params} != engine params "
                 f"{expected_params}")
-        if "ggsw_i8" not in z:
-            raise SerializationError("blob lacks the int8 GGSW form")
-        return BootstrapKey(
-            ggsw_i8=torch.from_numpy(np.ascontiguousarray(z["ggsw_i8"]))
-            .to(dev),
-            ksk_a=u32_to_tensor(z["ksk_a"], dev),
-            ksk_b=u32_to_tensor(z["ksk_b"], dev),
-            params=params)
+        forms = {}
+        if "ggsw_i8" in z:
+            forms["ggsw_i8"] = torch.from_numpy(
+                np.ascontiguousarray(z["ggsw_i8"])).to(dev)
+        if "ggsw_ext_lo" in z:
+            forms["ggsw_ext"] = (u32_to_tensor(z["ggsw_ext_lo"], dev),
+                                 u32_to_tensor(z["ggsw_ext_hi"], dev))
+        if "ggsw_crt_1lo" in z:
+            forms["ggsw_crt"] = tuple(
+                (u32_to_tensor(z[f"ggsw_crt_{i}lo"], dev),
+                 u32_to_tensor(z[f"ggsw_crt_{i}hi"], dev)) for i in (1, 2))
+        if not forms:
+            raise SerializationError("blob carries no GGSW form")
+        return BootstrapKey(ksk_a=u32_to_tensor(z["ksk_a"], dev),
+                            ksk_b=u32_to_tensor(z["ksk_b"], dev),
+                            params=params, **forms)
+
+
+def _plane_arrays(bsk: BootstrapKey):
+    """(array name, plane) of the key's NTT forms, under the JAX package's
+    names."""
+    out = []
+    if bsk.ggsw_ext is not None:
+        out += [("ggsw_ext_lo", bsk.ggsw_ext[0]),
+                ("ggsw_ext_hi", bsk.ggsw_ext[1])]
+    if bsk.ggsw_crt is not None:
+        for i, (lo, hi) in enumerate(bsk.ggsw_crt, start=1):
+            out += [(f"ggsw_crt_{i}lo", lo), (f"ggsw_crt_{i}hi", hi)]
+    return out
+
+
+def _form_field(engine) -> str:
+    """The GGSW field the engine's backend consumes."""
+    return {"ntt": "ggsw_ext", "crt": "ggsw_crt"}.get(engine.backend,
+                                                     "ggsw_i8")
 
 
 def peek_blob_origin(raw: bytes) -> tuple[int | None, str | None]:
@@ -112,8 +142,9 @@ class BootstrapKeyCache:
         h = hashlib.sha256()
         h.update(json.dumps(dataclasses.asdict(engine.p)).encode())
         h.update(str(int(seed)).encode())
-        # every backend of the port consumes the one int8 form
-        h.update(b"i8")
+        # key by the form the backend consumes: the int8 backends share one
+        h.update(b"i8" if _form_field(engine) == "ggsw_i8"
+                 else engine.backend.encode())
         h.update(RNG_TAG.encode())
         return os.path.join(self.dir, h.hexdigest()[:32] + ".fheb")
 
@@ -147,7 +178,10 @@ class BootstrapKeyCache:
                 f"{RNG_TAG!r}: its secret keys cannot be rederived")
         if blob_seed != int(seed):
             raise SerializationError(f"blob seed {blob_seed} != {seed}")
-        return deserialize_bootstrap_key(raw, engine.p, device=engine.device)
+        bsk = deserialize_bootstrap_key(raw, engine.p, device=engine.device)
+        if getattr(bsk, _form_field(engine)) is None:
+            raise SerializationError(f"blob lacks {_form_field(engine)}")
+        return bsk
 
     def load(self, engine, seed: int):
         """(lwe_sk, glwe_sk, bsk-or-None) without generating on a miss."""

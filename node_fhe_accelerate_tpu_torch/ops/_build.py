@@ -18,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "build_all"]
+__all__ = ["KernelLibrary", "build_all", "launch"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -106,3 +106,13 @@ def build_all(libraries) -> None:
         lib.start()
     for lib in libraries:
         lib.load()
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call a kernel's C launcher on ``device``'s current stream and raise
+    on the CUDA error it returns."""
+    import torch
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from ..core.torus import TorusRing
-from ._build import KernelLibrary
+from ._build import KernelLibrary, launch
 from .i8 import i8_digit_planes_to_u32, negacyclic_toeplitz_idx
 
 __all__ = ["cmux_step", "cmux_step_reference", "cmux_step_slabs",
@@ -274,15 +274,6 @@ def check_gadget(kp1: int, n: int, lvl: int, planes: int, base_log: int,
     # int32 accumulation bound (TfheEngine): terms * (base/2) * 128 < 2^31
     if lvl * kp1 * n * (1 << (base_log - 1)) * 128 >= (1 << 31):
         raise ValueError("shape exceeds the exact int32 accumulation bound")
-
-
-def launch(fn, name: str, device, *args) -> None:
-    """Call a kernel's C launcher on ``device``'s current stream and raise
-    on the CUDA error it returns."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def cmux_step(acc: torch.Tensor, rot: torch.Tensor, ggsw_i8_row: torch.Tensor,

@@ -1,15 +1,16 @@
-"""The Hopper CMux kernels (csrc/cmux_step.cu, cmux_step_slabs.cu,
-ladder_tiles.cu, ladder_steps.cu) vs their plain PyTorch versions on the
-card.  Needs a CUDA device and skips without one.  The file imports
+"""The Hopper kernels (csrc/cmux_step.cu, cmux_step_slabs.cu,
+ladder_tiles.cu, ladder_steps.cu, ntt.cu) vs their plain PyTorch versions
+on the card.  Needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine with a card and no
 JAX:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernel_cuda.py
 
 Inputs are random from a seeded torch.Generator.  Tolerance: exact
-equality -- every value is an integer mod 2^32."""
+equality -- every value is an integer mod 2^32 or mod the NTT prime."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,10 @@ from node_fhe_accelerate_tpu_torch.ops.cmux import (
 from node_fhe_accelerate_tpu_torch.ops.ladder import (
     blind_rotate_fused, blind_rotate_fused_reference,
     blind_rotate_fused_steps, blind_rotate_fused_steps_reference)
+from node_fhe_accelerate_tpu_torch.ops.ntt import (NTTContext,
+                                                   negacyclic_mul_np)
+from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import PallasNTT
+from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
 
 torch.set_num_threads(2)
 
@@ -170,3 +175,91 @@ def test_fused_bootstrap_matches_mxu(cuda_device, backend):
         .bootstrap(ct, bsk)
     assert torch.equal(got.a, want.a) and torch.equal(got.b, want.b)
     assert torch.equal(eng.lwe_decrypt(got, sk), msgs.to(torch.int32))
+
+
+P1 = (1 << 40) - (1 << 32) + 1
+P_EXT = (1 << 54) - (1 << 24) + 1
+Q_40_1 = 1095216660481
+Q_60_1 = 1152921504606584833
+NTT_SHAPES = dict(argvalues=[(256, 37, P_EXT), (4, 5, Q_40_1),
+                             (1024, 3, Q_40_1), (4096, 24, P1),
+                             (16384, 2, Q_60_1)],
+                  ids=["n256_pext_ragged", "n4", "n1024", "n4096_p1",
+                       "n16384_q60"])
+
+
+def random_planes(n, batch, q, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(0, q, (batch, n), generator=gen, dtype=torch.int64,
+                      device=dev)
+    v[0, :3] = torch.tensor([0, 1, q - 1])
+    return v.to(torch.int32), (v >> 32).to(torch.int32)
+
+
+def same_planes(x, y):
+    return all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch,q", **NTT_SHAPES)
+def test_ntt_transforms_match_plain(cuda_device, n, batch, q):
+    pk = PallasNTT(NTTContext(n, q))
+    a = random_planes(n, batch, q, cuda_device, 11)
+    before = dict(PallasNTT.launches)
+    fa = pk.forward(a)
+    back = pk.inverse(fa)
+    torch.cuda.synchronize()
+    assert PallasNTT.launches["forward"] == before["forward"] + 1
+    assert PallasNTT.launches["inverse"] == before["inverse"] + 1
+    assert same_planes(fa, pk.ntt.forward(a))
+    assert same_planes(back, pk.ntt.inverse(fa))
+    assert same_planes(back, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch,q", [(256, 37, P_EXT), (1024, 3, Q_40_1),
+                                       (8192, 2, Q_40_1)])
+def test_ntt_negacyclic_mul_matches_plain(cuda_device, n, batch, q):
+    pk = PallasNTT(NTTContext(n, q))
+    a = random_planes(n, batch, q, cuda_device, 12)
+    b = random_planes(n, batch, q, cuda_device, 13)
+    got = pk.negacyclic_mul(a, b)
+    torch.cuda.synchronize()
+    assert same_planes(got, pk.ntt.negacyclic_mul(a, b))
+    np.testing.assert_array_equal(
+        u64_to_np(got)[1], negacyclic_mul_np(u64_to_np(a)[1],
+                                             u64_to_np(b)[1], q))
+
+
+@pytest.mark.cuda
+def test_ntt_kernels_refuse_what_they_cannot_hold(cuda_device):
+    big = PallasNTT(NTTContext(1 << 15, Q_40_1))
+    a = random_planes(1 << 15, 1, Q_40_1, cuda_device, 1)
+    with pytest.raises(ValueError, match="largest degree"):
+        big.forward(a)
+    mul = PallasNTT(NTTContext(1 << 14, Q_40_1))
+    b = random_planes(1 << 14, 1, Q_40_1, cuda_device, 2)
+    with pytest.raises(ValueError, match="largest degree"):
+        mul.negacyclic_mul(b, b)
+    assert mul.forward(b)[0].shape == (1, 1 << 14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ntt", "crt"])
+def test_ntt_backends_match_mxu(cuda_device, backend):
+    """Keys from one generator state: the NTT backends' bootstraps equal
+    the int8 backend's bit for bit and decode."""
+    p = dataclasses.replace(SMALL, lwe_noise_std=0.0, glwe_noise_std=0.0)
+    outs = {}
+    for name in ("mxu", backend):
+        eng = TfheEngine(p, ext_backend=name, device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        lsk, gsk = eng.lwe_keygen(gen), eng.glwe_keygen(gen)
+        key = eng.generate_bootstrap_key(gen, lsk, gsk)
+        msgs = torch.arange(6, device=cuda_device) % 2
+        ct = eng.lwe_encrypt(gen, msgs, lsk)
+        outs[name] = eng.bootstrap(ct, key)
+        assert torch.equal(eng.lwe_decrypt(outs[name], lsk),
+                           msgs.to(torch.int32))
+    assert torch.equal(outs["mxu"].a, outs[backend].a)
+    assert torch.equal(outs["mxu"].b, outs[backend].b)

@@ -186,6 +186,14 @@ def test_port_imports_without_jax():
         "import node_fhe_accelerate_tpu_torch.convert\n"
         "import node_fhe_accelerate_tpu_torch.core.keycache\n"
         "import node_fhe_accelerate_tpu_torch.ops.cmux\n"
+        "import node_fhe_accelerate_tpu_torch.ops.ladder\n"
+        "import node_fhe_accelerate_tpu_torch.core.params\n"
+        "import node_fhe_accelerate_tpu_torch.ops.primes\n"
+        "import node_fhe_accelerate_tpu_torch.ops.u64\n"
+        "import node_fhe_accelerate_tpu_torch.ops.modular\n"
+        "import node_fhe_accelerate_tpu_torch.ops.ntt\n"
+        "import node_fhe_accelerate_tpu_torch.ops.ref_compat\n"
+        "import node_fhe_accelerate_tpu_torch.ops.ntt_pallas\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', "
         "'node_fhe_accelerate_tpu.')) for k, v in sys.modules.items() "
         "if v is not None)\n")

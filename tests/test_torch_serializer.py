@@ -218,3 +218,75 @@ def test_cache_touches_no_file_of_another_directory(tmp_path, monkeypatch):
     cache.get_or_generate(eng, 3)
     assert dir_state(".keycache") == before
     assert len(os.listdir(cache.dir)) == 1
+
+
+# ---------------------------------------------------------------------------
+# The NTT key forms ("ntt": ggsw_ext, "crt": ggsw_crt)
+# ---------------------------------------------------------------------------
+
+def ntt_forms(rng, shape=(6, 3, 2, 3, 64)):
+    """Random uint32 planes in the JAX layout of each NTT form."""
+    def u32():
+        return rng.integers(0, 1 << 32, shape,
+                            dtype=np.uint64).astype(np.uint32)
+    return {"ext": (u32(), u32()), "crt": ((u32(), u32()), (u32(), u32()))}
+
+
+def nested_equal(x, y):
+    if isinstance(x, tuple):
+        assert isinstance(y, tuple) and len(x) == len(y)
+        for a, b in zip(x, y):
+            nested_equal(a, b)
+    else:
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("form", ["ext", "crt"])
+def test_ntt_forms_carry_across_blobs_and_convert(key_arrays, form):
+    """A JAX key of either NTT form reads into the port (blob and convert),
+    and the port's blob reads back into the JAX package, array by array
+    under the JAX names."""
+    p, _, ka, kb = key_arrays
+    planes = ntt_forms(np.random.default_rng(3))[form]
+    field = "ggsw_" + form
+    jkey = JaxKey(ksk_a=jnp.asarray(ka), ksk_b=jnp.asarray(kb),
+                  params=JaxParams(**dataclasses.asdict(p)),
+                  **{field: planes})
+    bsk = deserialize_bootstrap_key(jax_serialize(jkey, seed=3), p,
+                                    device="cpu")
+    assert bsk.ggsw_i8 is None
+    got, got_ka, got_kb = bsk_to_numpy(bsk)
+    nested_equal(got, planes)
+    assert_key_equal((got_ka, got_kb), (ka, kb))
+    conv = bsk_from_numpy(None, ka, kb, p, device="cpu", **{field: planes})
+    nested_equal(bsk_to_numpy(conv)[0], planes)
+    back = jax_deserialize(serialize_bootstrap_key(conv), JaxParams(
+        **dataclasses.asdict(p)))
+    nested_equal(getattr(back, field), planes)
+    assert back.ggsw_i8 is None
+
+
+@pytest.mark.parametrize("backend", ["ntt", "crt"])
+def test_cache_keeps_the_form_of_the_backend(tmp_path, backend):
+    """The cache names and stores the form each backend consumes: an int8
+    entry of the same params and seed is a different file, and a blob
+    without the backend's form is never returned to it."""
+    eng = TfheEngine(CACHE_PARAMS, ext_backend=backend, device="cpu")
+    cache = BootstrapKeyCache(str(tmp_path / "kc"))
+    lwe_sk, _, bsk = cache.get_or_generate(eng, 5)
+    field = {"ntt": "ggsw_ext", "crt": "ggsw_crt"}[backend]
+    assert getattr(bsk, field) is not None and bsk.ggsw_i8 is None
+    again = cache.load(eng, 5)[2]
+    nested_equal(bsk_to_numpy(again)[0], bsk_to_numpy(bsk)[0])
+    i8_eng = cache_engine()
+    assert cache._path(i8_eng, 5) != cache._path(eng, 5)
+    assert cache.load(i8_eng, 5)[2] is None     # no int8 entry yet
+    cache.get_or_generate(i8_eng, 5)
+    assert len(os.listdir(cache.dir)) == 2
+    os.rename(cache._path(eng, 5), str(tmp_path / "aside.fheb"))
+    assert cache.load(eng, 5)[2] is None        # the int8 blob is no fit
+    assert os.listdir(cache.dir) == [os.path.basename(cache._path(i8_eng, 5))]
+    msgs = torch.tensor([0, 1, 1, 0])
+    ct = eng.lwe_encrypt(torch.Generator().manual_seed(1), msgs, lwe_sk)
+    assert torch.equal(eng.lwe_decrypt(eng.bootstrap(ct, again), lwe_sk),
+                       msgs.to(torch.int32))
