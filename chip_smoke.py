@@ -9,7 +9,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. the card's name and power limit, torch/CUDA versions, and the build of
    every kernel source under csrc/ (one nvcc each for sm_90a, side by side,
    into build/), with the compiler's register and spill lines;
-2. every kernel vs its plain PyTorch version, bit for bit: the NTT
+2. every kernel vs its plain PyTorch version, bit for bit: the digit-plane
+   Montgomery products (digits.cu: K9 digit-major at D=32 with the MSM's
+   widths B=131072, 16384, 8160, at D=48 with B=32768 and at a ragged
+   B=1000; K10 row-major at D=32 with B=8160 and 1, at D=48 with B=4096)
+   on canonical random elements, the edge values 0, 1, 2, q-1, q-2, ... in
+   both layouts, K9 == K10 on transposed inputs, and a few rows against
+   the big-integer oracle a*b*R^-1 mod q; the NTT
    kernels (ntt.cu: forward, inverse, negacyclic product) at the JAX
    package's bench shapes (N=1024/B=8192, 4096/2048, 16384/512 with
    Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, and
@@ -41,12 +47,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    pbs_n1024_N4096_l3_tfhe256 row) through "crt": keygen and one
    decode-checked bootstrap of TFHE256_BATCH (2048 forward and 2048 inverse
    launches); and the CRT ring product (one fused product launch per
-   prime) against the float64 mask product at N=4096;
+   prime) against the float64 mask product at N=4096; then the ZK path,
+   counts likewise and for each MSM covering the ``msm`` call alone:
+   msm_bn254_4096 as the JAX suite builds it (utils/bench_suite.py:
+   points from ``fixed_base_mul(1..4096)`` on the card, 62-bit scalars from
+   default_rng(7)) through the Pippenger, 504 K9 and 2584 K10 launches,
+   equal to the host Pippenger; the same at BLS12-381 G1 with n=1024 (456
+   and 2584); and a 64-bit Bulletproofs range proof on the card
+   (``BulletproofsGens.generate(curve, 64)``, a seeded prover, the value
+   drawn as the JAX suite draws it) equal field for field to the proof the
+   port makes on the CPU from the same seed, verifying, and refused once
+   t_hat is tampered;
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
-   no PyTorch call computes an NTT mod q, so the NTT kernels have none),
-   the key switch, bootstraps/s per backend, and the time of one TFHE_256
-   "crt" step split into its NTT launches and the plain work around them.
+   no PyTorch call computes an NTT mod q or a Montgomery product mod a
+   254- or 381-bit prime, so the NTT and digit kernels have none), the key
+   switch, bootstraps/s per backend, the time of one TFHE_256 "crt" step
+   split into its NTT launches and the plain work around them, the wall
+   time of msm_bn254_4096 split into its K9 and K10 launches and the plain
+   torch glue, then by point op and width, and its device busy share from
+   torch.profiler, and the seconds of one 64-bit prove_range and
+   verify_range.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +103,16 @@ INT32_MUL_PER_SM_CLK = 64
 # 32-bit multiplies of one 64-bit Montgomery product: the 64x64->128
 # product (8), its low half times -q^-1 (4), m*q (8).
 MONT_MULS = 20
+MSM_N = 4096             # the JAX suite's msm_bn254_4096 row
+MSM_BLS_N = 1024
+BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
+# launches of one Pippenger (c = 8, W = 32 windows of 8-limb scalars), each
+# point add evaluating 24 products and each double 7: the wide adds of the
+# group scans (log2 8 + ceil(log2(n/8)) + 1 bucket gather + 8 bucket scans)
+# take K9, the narrow tail (8 + 31*8 doubles and 2 + 31 adds at widths 32
+# and 1) takes K10
+PIPPENGER_LAUNCHES = {4096: (24 * (3 + 9 + 1 + 8), 7 * 256 + 24 * 33),
+                      1024: (24 * (3 + 7 + 1 + 8), 7 * 256 + 24 * 33)}
 
 
 def variant(name: str) -> str:
@@ -131,6 +162,19 @@ def ntt_bound(kind, b, n, mul_rate, peak_bytes):
         monts, nbytes = 3 * butterflies + 3 * b * n, 24 * b * n
     t_ops = MONT_MULS * monts / mul_rate
     t_bytes = nbytes / peak_bytes
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def digits_bound(d, b, mul_rate, peak_bytes):
+    """(ms, bound_by) of one Montgomery product over b elements of d 8-bit
+    digits held as int32: two operand planes read and one written (12 d
+    bytes an element) at the memory rate, against the 32-bit multiplies of
+    one CIOS product over L = d/4 limbs (2L^2 + L word products, low and
+    high halves each) at the INT32 rate."""
+    L = d // 4
+    t_ops = 2 * (2 * L * L + L) * b / mul_rate
+    t_bytes = 12 * d * b / peak_bytes
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -196,6 +240,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -213,6 +258,15 @@ def main() -> int:
                                                        negacyclic_mul_np)
     from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import NTT_LIB, PallasNTT
     from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
+    from node_fhe_accelerate_tpu_torch.ops import digits as dg
+    from node_fhe_accelerate_tpu_torch.ops import digits_pallas as dp
+    from node_fhe_accelerate_tpu_torch.ops.limbs import limbs_from_ints
+    from node_fhe_accelerate_tpu_torch.zk.bulletproofs import (
+        BulletproofsGens, BulletproofsProver, BulletproofsVerifier)
+    from node_fhe_accelerate_tpu_torch.zk.curve import (bls12_381_g1,
+                                                        bn254_g1)
+    from node_fhe_accelerate_tpu_torch.zk.field import (bls12_381_fq,
+                                                        bn254_fq)
 
     # ---- phase 1: card, versions, kernel builds
     smi = subprocess.run(
@@ -233,7 +287,7 @@ def main() -> int:
         f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: {mul_rate:.4e} 32-bit "
         "integer multiplies/s")
     libs = [cmux.STEP_LIB, cmux.SLABS_LIB, ladder.TILES_LIB, ladder.STEPS_LIB,
-            NTT_LIB]
+            NTT_LIB, dp.DIGITS_LIB]
     t0 = time.perf_counter()
     build_all(libs)
     log(f"phase 1: {len(libs)} kernel sources built side by side and "
@@ -244,12 +298,59 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     dev = torch.device("cuda")
     err = dict.fromkeys(["cmux_step", "v3", "v2", "ladder_tiles",
-                         "ladder_steps", "ntt"], 0)
+                         "ladder_steps", "ntt", "digits"], 0)
 
     def worse(key, value):
         err[key] = max(err[key], value)
 
     # ---- phase 2: every kernel vs its plain version
+    # the digit-plane Montgomery products (K9 digit-major, K10 row-major)
+    # against Field.mul_plain, on canonical elements: random digits with the
+    # top digit below q's
+    fq32, fq48 = bn254_fq(dev), bls12_381_fq(dev)
+
+    def rand_elems(f, b):
+        x = torch.randint(0, 256, (b, f.n_limbs), generator=gen,
+                          dtype=torch.int32, device="cuda")
+        x[:, -1] %= int(f._q_digits_np[-1])
+        return x
+
+    def check_digits(label, f, a, b, k9):
+        want = f.mul_plain(a, b)
+        got = (dp._mul_t_raw(f, a.T.contiguous(), b.T.contiguous()).T
+               if k9 else dp.pallas_field_mul(f, a, b))
+        worse("digits", check_equal(label, got, want))
+        rinv = pow(1 << (8 * f.n_limbs), -1, f.q)
+        rows = [dg.digits_to_ints(x[:3]) for x in (a, b, got)]
+        for x, y, z in zip(*rows):
+            if z != x * y * rinv % f.q:
+                raise AssertionError(f"{label}: a row != the big-integer "
+                                     "oracle a*b*R^-1 mod q")
+        return got
+
+    digit_shapes = {"mul_t": [(fq32, 131072), (fq32, 16384), (fq32, 8160),
+                              (fq48, 32768), (fq32, 1000)],
+                    "mul": [(fq32, 8160), (fq32, 1), (fq48, 4096)]}
+    for kind, shapes in digit_shapes.items():
+        for f, b in shapes:
+            check_digits(f"digits {kind} D={f.n_limbs}", f,
+                         rand_elems(f, b), rand_elems(f, b), kind == "mul_t")
+    for f in (fq32, fq48):
+        q = f.q
+        edge = [0, 1, 2, q - 1, q - 2, 255, 256, (1 << 254) % q, q // 2,
+                0xFF00FF00FF00FF00]
+        a, b = f.encode(edge), f.encode(edge[::-1])
+        for kind in ("mul_t", "mul"):
+            check_digits(f"digits {kind} D={f.n_limbs} edge values", f, a,
+                         b, kind == "mul_t")
+    a, b = rand_elems(fq32, 8160), rand_elems(fq32, 8160)
+    aT, bT = a.T.contiguous(), b.T.contiguous()
+    if not torch.equal(dp._mul_t_raw(fq32, aT, bT).T,
+                       dp.pallas_field_mul(fq32, a, b)):
+        raise AssertionError("digits: K9 != K10 on transposed inputs")
+    log("phase 2 digits: K9 == K10 on transposed inputs, D=32 B=8160; "
+        "rows 0-2 of every check == the big-integer oracle")
+    del a, b, aT, bT
     # the NTT kernels against NTTContext, on canonical random residues
     ntts = {}
 
@@ -443,7 +544,9 @@ def main() -> int:
                 "cmux_step_slabs_v2": cmux.cmux_step_slabs.launches["v2"],
                 "ladder_tiles": ladder.blind_rotate_fused.launches,
                 "ladder_steps": ladder.blind_rotate_fused_steps.launches,
-                **{f"ntt_{k}": v for k, v in PallasNTT.launches.items()}}
+                **{f"ntt_{k}": v for k, v in PallasNTT.launches.items()},
+                "digits_mul_t": dp._mul_t_raw.launches,
+                "digits_mul": dp.pallas_field_mul.launches}
 
     def zero_counts():
         cmux.cmux_step.launches = 0
@@ -451,6 +554,8 @@ def main() -> int:
         ladder.blind_rotate_fused.launches = 0
         ladder.blind_rotate_fused_steps.launches = 0
         PallasNTT.launches.update(forward=0, inverse=0, negacyclic_mul=0)
+        dp._mul_t_raw.launches = 0
+        dp.pallas_field_mul.launches = 0
 
     def expect_counts(path, **want):
         got = counts()
@@ -634,6 +739,108 @@ def main() -> int:
         "mask product, == plain CPU product (rows 0-3); "
         f"{launches['ntt_negacyclic_mul']} product launches")
 
+    # the ZK path at full width: msm_bn254_4096 as the JAX suite builds it
+    # (utils/bench_suite.py: points from fixed_base_mul(1..4096), scalars
+    # from default_rng(7)), then BLS12-381 G1 at n=1024; the counts cover
+    # the msm call alone
+    def affine(curve, p):
+        x, y, inf = curve.to_affine_ints(p)
+        return ([int(v) for v in np.atleast_1d(x)],
+                [int(v) for v in np.atleast_1d(y)],
+                np.atleast_1d(inf).tolist())
+
+    msm_runs = {}
+    for cname, make, n_pts in (("bn254", bn254_g1, MSM_N),
+                               ("bls12_381", bls12_381_g1, MSM_BLS_N)):
+        curve = make(dev)
+        t0 = time.perf_counter()
+        # the device backend: a scalar_mul at width n_pts (K9)
+        pts = curve.fixed_base_mul(list(range(1, n_pts + 1)))
+        torch.cuda.synchronize()
+        fbm_s = time.perf_counter() - t0
+        if affine(curve, pts) != affine(curve, curve.fixed_base_mul(
+                list(range(1, n_pts + 1)), backend="host")):
+            raise AssertionError(f"phase 4: {cname} fixed_base_mul on the "
+                                 "card != the host table")
+        svals = [int(v) for v in
+                 np.random.default_rng(7).integers(1, 1 << 62, n_pts)]
+        scal = limbs_from_ints(svals, 8, dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = curve.msm(scal, pts)
+        torch.cuda.synchronize()
+        msm_s = time.perf_counter() - t0
+        k9, k10 = PIPPENGER_LAUNCHES[n_pts]
+        got = expect_counts(f"msm {cname} n={n_pts}", digits_mul_t=k9,
+                            digits_mul=k10)
+        if cname == "bn254":
+            launches["digits_mul_t"] = got["digits_mul_t"]
+            launches["digits_mul"] = got["digits_mul"]
+        t0 = time.perf_counter()
+        host = curve.msm(scal, pts, backend="host")
+        host_s = time.perf_counter() - t0
+        if affine(curve, res) != affine(curve, host):
+            raise AssertionError(f"phase 4: msm {cname} n={n_pts} on the card "
+                                 "!= the host Pippenger")
+        msm_runs[cname] = (curve, scal, pts, msm_s)
+        log(f"phase 4: msm {cname} n={n_pts}: fixed_base_mul on the card "
+            f"{fbm_s:.3f} s (== host table); msm {msm_s:.4f} s, == host "
+            f"Pippenger ({host_s:.2f} s); K9 launches {got['digits_mul_t']}, "
+            f"K10 launches {got['digits_mul']}")
+
+    # a 64-bit Bulletproofs range proof on the card (the JAX suite's
+    # bp_range_prove_64 / bp_range_verify_64 rows), field for field equal
+    # to the proof the port makes on the CPU from the same seed
+    value = int.from_bytes(np.random.default_rng(9).bytes(8), "little")
+    proofs, bp_secs = {}, {}
+    for where in ("cuda", "cpu"):
+        curve = bn254_g1(where)
+        gens = BulletproofsGens.generate(curve, BP_BITS)
+        prover = BulletproofsProver(curve, rng_seed=args.seed + 3)
+        blinding = prover.random_scalar()
+        com = prover.commit(value, blinding, gens)
+        zero_counts()
+        t0 = time.perf_counter()
+        proof = prover.prove_range(value, blinding, BP_BITS, gens)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        bp_counts = counts()
+        verifier = BulletproofsVerifier(curve)
+        t0 = time.perf_counter()
+        ok = verifier.verify_range(com, proof, BP_BITS, gens)
+        verify_s = time.perf_counter() - t0
+        proofs[where] = (affine(curve, com.point), proof)
+        bp_secs[where] = (prove_s, verify_s)
+        if not ok:
+            raise AssertionError(f"phase 4: the 64-bit proof made on {where} "
+                                 "does not verify")
+        if where == "cuda":
+            if not (bp_counts["digits_mul_t"] and bp_counts["digits_mul"]) \
+                    or any(v for k, v in bp_counts.items()
+                           if not k.startswith("digits")):
+                raise AssertionError(f"phase 4: prove_range launches "
+                                     f"{bp_counts}")
+            proof.t_hat = (proof.t_hat + 1) % curve.order
+            if verifier.verify_range(com, proof, BP_BITS, gens):
+                raise AssertionError("phase 4: a tampered proof verified")
+            proof.t_hat = (proof.t_hat - 1) % curve.order
+            log(f"phase 4: prove_range {BP_BITS} bits on the card: K9 "
+                f"launches {bp_counts['digits_mul_t']}, K10 "
+                f"{bp_counts['digits_mul']}; tampered t_hat refused")
+    (com_g, pg), (com_c, pc) = proofs["cuda"], proofs["cpu"]
+    fields = ("A", "S", "T1", "T2", "t_hat", "tau_x", "mu")
+    if com_g != com_c or any(getattr(pg, k) != getattr(pc, k)
+                             for k in fields) \
+            or (pg.inner.L, pg.inner.R, pg.inner.a, pg.inner.b) != \
+            (pc.inner.L, pc.inner.R, pc.inner.a, pc.inner.b):
+        raise AssertionError("phase 4: the proof made on the card != the "
+                             "proof made on the CPU")
+    log(f"phase 4: {BP_BITS}-bit range proof: card == CPU field for field; "
+        f"verifies on both; prove {bp_secs['cuda'][0]:.3f} s on the card, "
+        f"{bp_secs['cpu'][0]:.3f} s on the CPU; verify "
+        f"{bp_secs['cuda'][1]:.3f} s / {bp_secs['cpu'][1]:.3f} s")
+
     # ---- phase 5: timings
     lvl, planes = pk4.pbs_level, row.shape[-2]
     macs, io_bytes = step_work(BATCH, kp1, n, lvl, planes)
@@ -778,9 +985,118 @@ def main() -> int:
             f"{k} {v:.4f} ms ({100 * v / split['step']:.1f}%)"
             for k, v in split.items() if k != "step"))
 
+    # the digit kernels at the phase 2 shapes; the JSON rows at the main
+    # path's shapes (K9 at its widest, B=131072; K10 at B=1, where 2480 of
+    # its 2584 launches run)
+    digit_times = {}
+    for kind, shapes in digit_shapes.items():
+        for f, b in shapes:
+            a, c = rand_elems(f, b), rand_elems(f, b)
+            if kind == "mul_t":
+                aT, cT = a.T.contiguous(), c.T.contiguous()
+                run = lambda: dp._mul_t_raw(f, aT, cT)
+                plain = lambda: dp.mul_t_reference(f, aT, cT)
+            else:
+                run = lambda: dp.pallas_field_mul(f, a, c)
+                plain = lambda: dp.field_mul_reference(f, a, c)
+            ms = cuda_ms(run, 20)
+            plain_ms = cuda_ms(plain, 3, warmup=1)
+            b_ms, b_by = digits_bound(f.n_limbs, b, mul_rate, peak_bytes)
+            digit_times[kind, f.n_limbs, b] = (ms, plain_ms, (b_ms, b_by),
+                                               None)
+            log(f"phase 5: digits {kind} D={f.n_limbs} B={b}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), library none (no PyTorch call computes a "
+                "Montgomery product mod a 254- or 381-bit prime)")
+    times["digits_mul_t"] = digit_times["mul_t", 32, 131072]
+    times["digits_mul"] = digit_times["mul", 32, 1]
+    # msm_bn254_4096: wall time (one call ending in a synchronize) split
+    # into its kernel launches, each at its shape, and the rest (the plain
+    # torch glue and the host)
+    curve, scal, pts, _ = msm_runs["bn254"]
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        curve.msm(scal, pts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # K9: 3 within-group adds at n*W = 131072 points, 9 group-total adds
+    # at 16384, 9 bucket adds at 255*W = 8160 (24 products each); K10: 2480
+    # products at width 1 (the Horner tail) and 104 at width W = 32
+    k9_ms = sum(digit_times["mul_t", 32, w][0] * 24 * adds
+                for w, adds in ((131072, 3), (16384, 9), (8160, 9)))
+    a32, b32 = rand_elems(fq32, 32), rand_elems(fq32, 32)
+    k10_ms = (digit_times["mul", 32, 1][0] * 2480
+              + cuda_ms(lambda: dp.pallas_field_mul(fq32, a32, b32), 20)
+              * 104)
+    wall_ms = min(walls) * 1e3
+    log(f"phase 5: msm_bn254_4096 wall {[round(x, 4) for x in walls]} s; "
+        f"K9 launches {k9_ms:.2f} ms ({100 * k9_ms / wall_ms:.1f}%), K10 "
+        f"launches {k10_ms:.2f} ms ({100 * k10_ms / wall_ms:.1f}%), plain "
+        f"torch glue and host {wall_ms - k9_ms - k10_ms:.1f} ms "
+        f"({100 * (wall_ms - k9_ms - k10_ms) / wall_ms:.1f}%); "
+        f"BLS12-381 n={MSM_BLS_N} msm {msm_runs['bls12_381'][3]:.4f} s; "
+        f"prove_range {BP_BITS} {bp_secs['cuda'][0]:.3f} s, verify_range "
+        f"{bp_secs['cuda'][1]:.3f} s")
+    # where one msm_bn254_4096 spends its time: every point op of one call
+    # on the host clock between synchronizes, by kind and width (the rest
+    # is the sorts, gathers and searches around them) ...
+    ops = {}
+
+    def timed(kind, fn):
+        def run(*args):
+            width = args[0][0].numel() // args[0][0].shape[-1]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            count, secs = ops.get((kind, width), (0, 0.0))
+            ops[kind, width] = (count + 1, secs + time.perf_counter() - t)
+            return out
+        return run
+
+    curve.add, curve.double = timed("add", curve.add), timed("double",
+                                                             curve.double)
+    t0 = time.perf_counter()
+    curve.msm(scal, pts)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    del curve.add, curve.double             # the class's methods again
+    in_ops = sum(s for _, s in ops.values())
+    log(f"phase 5: msm_bn254_4096 by point op ({split_s:.4f} s with a "
+        "synchronize around each op): " + "; ".join(
+            f"{kind} at width {w}: {c} x {1e3 * s / c:.3f} ms = {s:.4f} s"
+            for (kind, w), (c, s) in sorted(ops.items(),
+                                            key=lambda kv: -kv[0][1]))
+        + f"; outside the point ops {split_s - in_ops:.4f} s")
+    # ... and the device's busy time over one call, from the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        curve.msm(scal, pts)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(k[0] for k in kernels)
+    if busy_us:
+        log(f"phase 5: msm_bn254_4096 under the profiler {prof_s:.4f} s: "
+            f"device busy {busy_us / 1e6:.4f} s, idle share "
+            f"{100 * (1 - busy_us / 1e6 / prof_s):.1f}%; "
+            f"{sum(k[1] for k in kernels)} device kernels; the most time: "
+            + "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
+                        for us, cnt, key in sorted(kernels)[::-1][:6]))
+    else:
+        log("phase 5: msm_bn254_4096 device busy share not measured (the "
+            "profiler recorded no device events)")
+
     src = "node_fhe_accelerate_tpu_torch/csrc/"
     ref = "node_fhe_accelerate_tpu/ops/pallas_cmux.py:"
     ntt_ref = "node_fhe_accelerate_tpu/ops/ntt_pallas.py:"
+    digits_ref = "node_fhe_accelerate_tpu/ops/digits_pallas.py:"
     table = [("cmux_step", "cmux_step.cu", ref + "144", "cmux_step"),
              ("cmux_step_slabs_v3", "cmux_step_slabs.cu", ref + "183", "v3"),
              ("cmux_step_slabs_v2", "cmux_step_slabs.cu", ref + "226", "v2"),
@@ -788,7 +1104,9 @@ def main() -> int:
              ("ladder_steps", "ladder_steps.cu", ref + "459", "ladder_steps"),
              ("ntt_forward", "ntt.cu", ntt_ref + "179", "ntt"),
              ("ntt_inverse", "ntt.cu", ntt_ref + "179", "ntt"),
-             ("ntt_negacyclic_mul", "ntt.cu", ntt_ref + "227", "ntt")]
+             ("ntt_negacyclic_mul", "ntt.cu", ntt_ref + "227", "ntt"),
+             ("digits_mul_t", "digits.cu", digits_ref + "393", "digits"),
+             ("digits_mul", "digits.cu", digits_ref + "252", "digits")]
     record = {"kernels": [{
         "name": kname, "route": "cuda", "source": src + source,
         "replaces": line, "launches": launches[kname],

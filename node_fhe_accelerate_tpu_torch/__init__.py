@@ -1,14 +1,24 @@
 """node-fhe-accelerate-tpu, PyTorch/CUDA port.
 
 The JAX package ``node_fhe_accelerate_tpu`` is the reference; this package
-reproduces its TFHE programmable bootstrap bit for bit in PyTorch, with the
-blind-rotate CMux step running as a hand-written CUDA kernel for Hopper
-(``csrc/cmux_step.cu``).  Module names mirror the JAX package so each
-function's counterpart is found at the same path.
+reproduces, bit for bit in PyTorch:
 
-Torus values (uint32 in the reference) are held in ``int32`` tensors with
-the same bits: add, sub and mul wrap identically, and ``ops/u32.py`` supplies
-the logical shift and unsigned compare that int32 lacks.
+* its TFHE programmable bootstrap, with the blind-rotate CMux step, the
+  whole ladder and the negacyclic NTTs running as hand-written CUDA kernels
+  for Hopper (``csrc/cmux_step.cu``, ``ladder_*.cu``, ``ntt.cu``);
+* its ZK field and curve path: the BN254/BLS12-381 digit-plane fields
+  (``zk/field.py``, ``field2.py``), G1 with the Pippenger MSM
+  (``zk/curve.py``), Poseidon and the transcript (``zk/hashes.py``) and
+  Bulletproofs range proofs (``zk/bulletproofs.py``), with every field
+  product a Montgomery-multiply kernel (``csrc/digits.cu``).
+
+Module names mirror the JAX package so each function's counterpart is found
+at the same path.
+
+Torus values and scalar limbs (uint32 in the reference) are held in
+``int32`` tensors with the same bits: add, sub and mul wrap identically, and
+``ops/u32.py`` supplies the logical shift and unsigned compare that int32
+lacks.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 there is no silent CPU fallback (``device.resolve_device``).
@@ -18,9 +28,20 @@ from .core.bootstrap import (
     TfheParams, TfheEngine, LweCiphertext, GlweCiphertext, BootstrapKey,
     TFHE_BOOT_128, TFHE_BOOT_128_L2, TFHE_BOOT_128_K4, TFHE_BOOT_128_K4T,
 )
+from .zk.field import (Field, bls12_381_fq, bls12_381_fr, bn254_fq,
+                       bn254_fr)
+from .zk.field2 import Field2, bls12_381_fq2, bn254_fq2
+from .zk.curve import Curve, bls12_381_g1, bn254_g1
+from .zk.hashes import PoseidonHash, Transcript
+from .zk.bulletproofs import (BulletproofsGens, BulletproofsProver,
+                              BulletproofsVerifier)
 
 __all__ = [
     "resolve_device", "TfheParams", "TfheEngine", "LweCiphertext",
     "GlweCiphertext", "BootstrapKey", "TFHE_BOOT_128", "TFHE_BOOT_128_L2",
     "TFHE_BOOT_128_K4", "TFHE_BOOT_128_K4T",
+    "Field", "bn254_fq", "bn254_fr", "bls12_381_fq", "bls12_381_fr",
+    "Field2", "bn254_fq2", "bls12_381_fq2", "Curve", "bn254_g1",
+    "bls12_381_g1", "PoseidonHash", "Transcript", "BulletproofsGens",
+    "BulletproofsProver", "BulletproofsVerifier",
 ]

@@ -1,5 +1,6 @@
-"""Carry keys and ciphertexts between the JAX package and the port as
-numpy arrays (uint32 torus values <-> int32 tensors with the same bits).
+"""Carry keys, ciphertexts and ZK state between the JAX package and the
+port as numpy arrays (uint32 torus values <-> int32 tensors with the same
+bits; int32 digit planes and points as they are).
 
 The caller turns JAX arrays into numpy with ``np.asarray``; nothing here
 imports JAX.
@@ -13,7 +14,9 @@ from .core.bootstrap import BootstrapKey, LweCiphertext, TfheParams
 from .device import resolve_device, tensor_to_u32, u32_to_tensor
 
 __all__ = ["bsk_from_numpy", "bsk_to_numpy", "lwe_from_numpy",
-           "lwe_to_numpy"]
+           "lwe_to_numpy", "digits_from_numpy", "digits_to_numpy",
+           "points_from_numpy", "points_to_numpy",
+           "bulletproofs_gens_from_numpy"]
 
 
 def _i8_tensor(arr, dev):
@@ -85,3 +88,48 @@ def lwe_from_numpy(a, b, device=None) -> LweCiphertext:
 def lwe_to_numpy(ct: LweCiphertext):
     """LweCiphertext -> (a, b) uint32 arrays."""
     return tensor_to_u32(ct.a), tensor_to_u32(ct.b)
+
+
+# ---------------------------------------------------------------------------
+# ZK state: digit planes, points, Bulletproofs generators
+# ---------------------------------------------------------------------------
+
+
+def digits_from_numpy(arr, device=None) -> torch.Tensor:
+    """int32 digit planes (a numpy array, e.g. of a JAX field element or
+    point coordinate) -> an int32 tensor on ``device``."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.int32))
+    if not a.flags.writeable:       # e.g. a view of a JAX array
+        a = a.copy()
+    return torch.from_numpy(a).to(resolve_device(device))
+
+
+def digits_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Digit-plane tensor -> int32 numpy array."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"expected an int32 tensor, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy()
+
+
+def points_from_numpy(curve, pts) -> tuple:
+    """(X, Y, Z) int32 digit arrays of a JAX point set -> the same points on
+    ``curve``'s device."""
+    if len(pts) != 3:
+        raise ValueError("a point is three coordinate planes (X, Y, Z)")
+    return tuple(digits_from_numpy(c, curve.device) for c in pts)
+
+
+def points_to_numpy(pts) -> tuple:
+    """Port points -> (X, Y, Z) int32 numpy arrays."""
+    return tuple(digits_to_numpy(c) for c in pts)
+
+
+def bulletproofs_gens_from_numpy(curve, G, H, U, g_vec, h_vec, n: int):
+    """The numpy (X, Y, Z) arrays of a JAX ``BulletproofsGens`` -> the
+    port's ``BulletproofsGens`` on ``curve``'s device."""
+    from .zk.bulletproofs import BulletproofsGens
+    return BulletproofsGens(
+        curve=curve, G=points_from_numpy(curve, G),
+        H=points_from_numpy(curve, H), U=points_from_numpy(curve, U),
+        g_vec=points_from_numpy(curve, g_vec),
+        h_vec=points_from_numpy(curve, h_vec), n=n)

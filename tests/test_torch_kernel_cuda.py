@@ -1,13 +1,15 @@
 """The Hopper kernels (csrc/cmux_step.cu, cmux_step_slabs.cu,
-ladder_tiles.cu, ladder_steps.cu, ntt.cu) vs their plain PyTorch versions
-on the card.  Needs a CUDA device and skips without one.  The file imports
+ladder_tiles.cu, ladder_steps.cu, ntt.cu, digits.cu) vs their plain PyTorch
+versions on the card.  Needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine with a card and no
 JAX:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernel_cuda.py
 
-Inputs are random from a seeded torch.Generator.  Tolerance: exact
-equality -- every value is an integer mod 2^32 or mod the NTT prime."""
+Inputs are random from a seeded torch.Generator (numpy with a seed for
+the field elements).  Tolerance: exact
+equality -- every value is an integer mod 2^32, mod the NTT prime or mod
+a field prime."""
 import dataclasses
 
 import numpy as np
@@ -25,7 +27,12 @@ from node_fhe_accelerate_tpu_torch.ops.ladder import (
 from node_fhe_accelerate_tpu_torch.ops.ntt import (NTTContext,
                                                    negacyclic_mul_np)
 from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import PallasNTT
+from node_fhe_accelerate_tpu_torch.ops import digits, limbs
+from node_fhe_accelerate_tpu_torch.ops.digits_pallas import (
+    _mul_t_raw, pallas_field_mul)
 from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
+from node_fhe_accelerate_tpu_torch.zk import curve as zk_curve
+from node_fhe_accelerate_tpu_torch.zk import field as zk_field
 
 torch.set_num_threads(2)
 
@@ -263,3 +270,59 @@ def test_ntt_backends_match_mxu(cuda_device, backend):
                            msgs.to(torch.int32))
     assert torch.equal(outs["mxu"].a, outs[backend].a)
     assert torch.equal(outs["mxu"].b, outs[backend].b)
+
+
+def random_elements(f, batch, dev, seed):
+    """Canonical random field elements (batch, D) with the edge values 0, 1
+    and q-1 in the first rows."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(f.n_limbs), "little") % f.q
+            for _ in range(batch)]
+    vals[:3] = [0, 1, f.q - 1][:batch]
+    return f.encode(vals).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch", [("bn254_fq", 8160),
+                                        ("bn254_fr", 1000),
+                                        ("bls12_381_fq", 4096),
+                                        ("bls12_381_fq", 1)])
+def test_digit_kernels_match_plain(cuda_device, name, batch):
+    """K9 (digit-major) and K10 (row-major) == the plain digit algebra, and
+    a few rows == the big-integer oracle a*b*R^-1 mod q."""
+    f = getattr(zk_field, name)(device=cuda_device)
+    a = random_elements(f, batch, cuda_device, 14)
+    b = random_elements(f, batch, cuda_device, 15)
+    before = (_mul_t_raw.launches, pallas_field_mul.launches)
+    k9 = _mul_t_raw(f, a.T.contiguous(), b.T.contiguous())
+    k10 = pallas_field_mul(f, a, b)
+    torch.cuda.synchronize()
+    assert (_mul_t_raw.launches, pallas_field_mul.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = f.mul_plain(a, b)
+    assert torch.equal(k9.T, want) and torch.equal(k10, want)
+    assert torch.equal(f.mul(a, b), want) and torch.equal(f.square(a),
+                                                          f.mul_plain(a, a))
+    rinv = pow(1 << (8 * f.n_limbs), -1, f.q)
+    xs, ys, zs = (digits.digits_to_ints(x[:4]) for x in (a, b, k10))
+    for x, y, z in zip(xs, ys, zs):
+        assert z == x * y * rinv % f.q
+
+
+@pytest.mark.cuda
+def test_device_msm_matches_host(cuda_device):
+    """A device MSM at n=256 (the Pippenger: K9 wide adds, K10 narrow ops)
+    == the host backend on the same inputs."""
+    c = zk_curve.bn254_g1(device=cuda_device)
+    rng = np.random.default_rng(16)
+    pts = c.fixed_base_mul([int(v) for v in rng.integers(1, 2 ** 30, 256)])
+    sc = limbs.limbs_from_ints([int(v) for v in
+                                rng.integers(0, 2 ** 62, 256)], 8,
+                               cuda_device)
+    before = (_mul_t_raw.launches, pallas_field_mul.launches)
+    got = c.msm(sc, pts)
+    assert _mul_t_raw.launches > before[0]
+    assert pallas_field_mul.launches > before[1]
+    want = c.msm(sc, pts, backend="host")
+    assert [int(v) for v in c.to_affine_ints(got)[:2]] == \
+        [int(v) for v in c.to_affine_ints(want)[:2]]

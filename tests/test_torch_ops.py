@@ -194,6 +194,15 @@ def test_port_imports_without_jax():
         "import node_fhe_accelerate_tpu_torch.ops.ntt\n"
         "import node_fhe_accelerate_tpu_torch.ops.ref_compat\n"
         "import node_fhe_accelerate_tpu_torch.ops.ntt_pallas\n"
+        "import node_fhe_accelerate_tpu_torch.ops.limbs\n"
+        "import node_fhe_accelerate_tpu_torch.ops.digits\n"
+        "import node_fhe_accelerate_tpu_torch.ops.digits_pallas\n"
+        "import node_fhe_accelerate_tpu_torch.zk.field\n"
+        "import node_fhe_accelerate_tpu_torch.zk.field2\n"
+        "import node_fhe_accelerate_tpu_torch.zk.curve\n"
+        "import node_fhe_accelerate_tpu_torch.zk.rand\n"
+        "import node_fhe_accelerate_tpu_torch.zk.hashes\n"
+        "import node_fhe_accelerate_tpu_torch.zk.bulletproofs\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', "
         "'node_fhe_accelerate_tpu.')) for k, v in sys.modules.items() "
         "if v is not None)\n")
