@@ -64,10 +64,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    254- or 381-bit prime, so the NTT and digit kernels have none), the key
    switch, bootstraps/s per backend, the time of one TFHE_256 "crt" step
    split into its NTT launches and the plain work around them, the wall
-   time of msm_bn254_4096 split into its K9 and K10 launches and the plain
-   torch glue, then by point op and width, and its device busy share from
-   torch.profiler, and the seconds of one 64-bit prove_range and
-   verify_range.
+   time of msm_bn254_4096, its split by point op and width, and, within
+   one call under torch.profiler, the device time and launches of K9, K10
+   and the other kernels and the device's idle share, and the seconds of
+   one 64-bit prove_range and verify_range.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1010,9 +1010,8 @@ def main() -> int:
                 "Montgomery product mod a 254- or 381-bit prime)")
     times["digits_mul_t"] = digit_times["mul_t", 32, 131072]
     times["digits_mul"] = digit_times["mul", 32, 1]
-    # msm_bn254_4096: wall time (one call ending in a synchronize) split
-    # into its kernel launches, each at its shape, and the rest (the plain
-    # torch glue and the host)
+    # msm_bn254_4096: wall time of one call ending in a synchronize (its
+    # split into the kernels and the rest comes from the profiler below)
     curve, scal, pts, _ = msm_runs["bn254"]
     walls = []
     for _ in range(2):
@@ -1020,21 +1019,7 @@ def main() -> int:
         curve.msm(scal, pts)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    # K9: 3 within-group adds at n*W = 131072 points, 9 group-total adds
-    # at 16384, 9 bucket adds at 255*W = 8160 (24 products each); K10: 2480
-    # products at width 1 (the Horner tail) and 104 at width W = 32
-    k9_ms = sum(digit_times["mul_t", 32, w][0] * 24 * adds
-                for w, adds in ((131072, 3), (16384, 9), (8160, 9)))
-    a32, b32 = rand_elems(fq32, 32), rand_elems(fq32, 32)
-    k10_ms = (digit_times["mul", 32, 1][0] * 2480
-              + cuda_ms(lambda: dp.pallas_field_mul(fq32, a32, b32), 20)
-              * 104)
-    wall_ms = min(walls) * 1e3
     log(f"phase 5: msm_bn254_4096 wall {[round(x, 4) for x in walls]} s; "
-        f"K9 launches {k9_ms:.2f} ms ({100 * k9_ms / wall_ms:.1f}%), K10 "
-        f"launches {k10_ms:.2f} ms ({100 * k10_ms / wall_ms:.1f}%), plain "
-        f"torch glue and host {wall_ms - k9_ms - k10_ms:.1f} ms "
-        f"({100 * (wall_ms - k9_ms - k10_ms) / wall_ms:.1f}%); "
         f"BLS12-381 n={MSM_BLS_N} msm {msm_runs['bls12_381'][3]:.4f} s; "
         f"prove_range {BP_BITS} {bp_secs['cuda'][0]:.3f} s, verify_range "
         f"{bp_secs['cuda'][1]:.3f} s")
@@ -1069,7 +1054,9 @@ def main() -> int:
             for (kind, w), (c, s) in sorted(ops.items(),
                                             key=lambda kv: -kv[0][1]))
         + f"; outside the point ops {split_s - in_ops:.4f} s")
-    # ... and the device's busy time over one call, from the profiler
+    # ... and, within one profiled call alone, the device time of K9
+    # (mont_mul_kernel<L, true>), K10 (<L, false>) and every other kernel,
+    # and the device's idle share of that call's wall time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1083,15 +1070,29 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(k[0] for k in kernels)
     if busy_us:
-        log(f"phase 5: msm_bn254_4096 under the profiler {prof_s:.4f} s: "
-            f"device busy {busy_us / 1e6:.4f} s, idle share "
-            f"{100 * (1 - busy_us / 1e6 / prof_s):.1f}%; "
-            f"{sum(k[1] for k in kernels)} device kernels; the most time: "
-            + "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
-                        for us, cnt, key in sorted(kernels)[::-1][:6]))
+        prof_us = prof_s * 1e6
+        mont = {}
+        for label, tag in (("K9", "true>"), ("K10", "false>")):
+            mine = [k for k in kernels
+                    if "mont_mul_kernel" in k[2] and tag in k[2]]
+            mont[label] = (sum(k[0] for k in mine), sum(k[1] for k in mine))
+        other_us = busy_us - mont["K9"][0] - mont["K10"][0]
+        log(f"phase 5: msm_bn254_4096 under the profiler, one call of "
+            f"{prof_s:.4f} s: device busy {busy_us / 1e6:.4f} s, idle share "
+            f"{100 * (1 - busy_us / prof_us):.1f}%; " + "; ".join(
+                f"{label} {us / 1e3:.3f} ms device in {cnt} launches "
+                f"({us / max(cnt, 1):.2f} us each, "
+                f"{100 * us / prof_us:.2f}% of the call)"
+                for label, (us, cnt) in mont.items())
+            + f"; other device kernels {other_us / 1e3:.2f} ms "
+            f"({100 * other_us / prof_us:.1f}%) in "
+            f"{sum(k[1] for k in kernels) - mont['K9'][1] - mont['K10'][1]}"
+            " launches; the most time: " + "; ".join(
+                f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
+                for us, cnt, key in sorted(kernels)[::-1][:6]))
     else:
-        log("phase 5: msm_bn254_4096 device busy share not measured (the "
-            "profiler recorded no device events)")
+        log("phase 5: msm_bn254_4096 device split and idle share not "
+            "measured (the profiler recorded no device events)")
 
     src = "node_fhe_accelerate_tpu_torch/csrc/"
     ref = "node_fhe_accelerate_tpu/ops/pallas_cmux.py:"

@@ -1,9 +1,11 @@
 """The port's ZK hashes and Bulletproofs (node_fhe_accelerate_tpu_torch/
 zk/hashes.py, rand.py, bulletproofs.py) against the JAX package, on the CPU.
 
-The JAX prover takes minutes to compile on the CPU, so the 4-bit range
-proof is compared field for field against the proof the JAX package made
-with the same seed and value, committed below:
+The JAX prover takes minutes on the CPU, so the default tier compares the
+4-bit range proof field for field against the proof the JAX package made
+with the same seed and value, committed below; the ``slow`` tier makes that
+proof with the JAX package live and holds both the port's proof and the
+committed one equal to it:
 
     curve = bn254_g1(); gens = BulletproofsGens.generate(curve, 4)
     prover = BulletproofsProver(curve, rng_seed=7)
@@ -161,3 +163,24 @@ def test_range_proof_4_bits_matches_jax(bp4):
     assert not verifier.verify_range(other, proof, 4, gens)
     with pytest.raises(ValueError, match="out of range"):
         prover.prove_range(16, blinding, 4, gens)
+
+
+@pytest.mark.slow
+def test_range_proof_4_bits_matches_jax_live(bp4):
+    curve, gens = bp4
+    jc = jax_bn254_g1()
+    jgens = jbp.BulletproofsGens.generate(jc, 4)
+    jprover = jbp.BulletproofsProver(jc, rng_seed=7)
+    prover = bp.BulletproofsProver(curve, rng_seed=7)
+    blinding = jprover.random_scalar()
+    assert prover.random_scalar() == blinding == JAX_PROOF_4["blinding"]
+    want_v = jbp._aff(jc, jprover.commit(12, blinding, jgens).point)
+    assert bp._aff(curve, prover.commit(12, blinding, gens).point) == want_v
+    assert want_v == JAX_PROOF_4["V"]
+    want = jprover.prove_range(12, blinding, 4, jgens)
+    got = prover.prove_range(12, blinding, 4, gens)
+    for k in ("A", "S", "T1", "T2", "t_hat", "tau_x", "mu"):
+        assert getattr(got, k) == getattr(want, k) == JAX_PROOF_4[k], k
+    for k in ("L", "R", "a", "b"):
+        assert (getattr(got.inner, k) == getattr(want.inner, k)
+                == JAX_PROOF_4[k]), k

@@ -10,9 +10,10 @@ interpret mode.  The kernels themselves are held against the plain versions
 on the card (tests/test_torch_kernel_cuda.py, chip_smoke.py).
 
 The Jacobian add/double of the edge-point set of tests/test_digits_pallas.py
-(an infinity, a doubling row, an inverse pair) compile for longer than the
-tests may take under JAX, so they are compared against SHA-256 digests of
-the JAX package's outputs (int32 digit planes X, Y, Z, concatenated):
+(an infinity, a doubling row, an inverse pair) is compared two ways.  The
+default tier holds the port against the JAX package's outputs committed in
+tests/torch_point_vectors.json (every coordinate plane, row by row, as the
+little-endian integer of its digits): for G1
 
     jax.jit(lambda p, q: jadd_formula(f, p, q, select=f.select,
         where_zero=...))(P, Q)      and   jax.jit(jdbl_formula)(f, P)
@@ -20,8 +21,12 @@ the JAX package's outputs (int32 digit planes X, Y, Z, concatenated):
 with f = bn254_g1().fq, and for G2 the same formulas evaluated eagerly
 over bn254_g2().fq on P = bn254_g2().generator((8,)) and
 Q = jdbl(jdbl(P)) with the edge rows set as in
-tests/test_digits_pallas.py:136-156.  Tolerance: exact equality."""
-import hashlib
+tests/test_digits_pallas.py:136-156.  The ``slow`` tier runs those JAX
+calls live (~30 s of compile and eager dispatch on the CPU) and holds both
+the port and the committed vectors equal to them, plane for plane.
+Tolerance: exact equality."""
+import json
+import pathlib
 from types import SimpleNamespace
 
 import jax
@@ -40,24 +45,29 @@ from node_fhe_accelerate_tpu_torch.zk.curve import (bn254_g1, jadd_formula,
                                                     jdbl_formula)
 from node_fhe_accelerate_tpu_torch.zk.field2 import bn254_fq2
 
-G1_DIGESTS = {
-    "P": "ec9434d1dc7736c72e898ed542a50936c35c50ea16fd24eb2cf457d27cd69c94",
-    "Q": "af2cc4ba3798574a046a37004f1c3688f3216f763e8a87018dcd8a6e9f79918e",
-    "add": "d8cb0d1071f399708316d7162094ae93020b2e3faf0548ee886a6aa817a86501",
-    "dbl": "11ece3ae91f5de1db9c769d724aa5b093f1932afa0ad1d036bef9aadbb06f130",
-}
-G2_DIGESTS = {
-    "P": "fab5c5bccbbd5b24075c1d0569db3293aee176a4a0addc1ab959328bf078349f",
-    "Q": "9f1441cc42094f93281a6fd6ac83bb24b7fa1e35de0b7d1d740e0fea27daacb8",
-    "add": "7379dac6788d9976c3c6ec2b0fe3800ad1b3e5323cff2044d0a62c5188f358bb",
-    "dbl": "8f1f335ecb743ddb8bb94b6dc0f94dd223f4264a634c206e371306689c000a8f",
-}
+VECTORS = json.loads((pathlib.Path(__file__).parent
+                      / "torch_point_vectors.json").read_text())
 
 
-def _digest(pt) -> str:
-    return hashlib.sha256(b"".join(
-        c.contiguous().numpy().astype(np.int32).tobytes() for c in pt)
-    ).hexdigest()
+def _rows(pt) -> list:
+    """Points -> per coordinate, the rows' digits as little-endian ints."""
+    out = []
+    for c in pt:
+        c = np.asarray(c)
+        assert c.min() >= 0 and c.max() <= 255
+        out.append([int.from_bytes(r.astype(np.uint8).tobytes(), "little")
+                    for r in c])
+    return out
+
+
+def _want(curve: str, op: str) -> list:
+    return [[int(v, 16) for v in plane] for plane in VECTORS[curve][op]]
+
+
+def _assert_planes(got, want, label):
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=f"{label} coordinate {i}")
 
 
 def _values(q: int, seed: int, n: int = 13) -> list:
@@ -120,46 +130,107 @@ def _g1_edge_points():
     Q = (Q[0].at[6].set(P[0][6]).at[7].set(P[0][7]),
          Q[1].at[6].set(P[1][6]).at[7].set(curve.fq.neg(P[1][7])),
          Q[2].at[6].set(P[2][6]).at[7].set(P[2][7]))
+    P = (P[0], P[1], Pz)
     tc = bn254_g1(device="cpu")
-    return (tc, points_from_numpy(tc, [np.asarray(c) for c in (P[0], P[1],
-                                                                Pz)]),
-            points_from_numpy(tc, [np.asarray(c) for c in Q]))
+    return (tc, points_from_numpy(tc, [np.asarray(c) for c in P]),
+            points_from_numpy(tc, [np.asarray(c) for c in Q]), (curve, P, Q))
 
 
-def test_g1_point_ops_match_jax():
-    tc, P, Q = _g1_edge_points()
-    assert _digest(P) == G1_DIGESTS["P"] and _digest(Q) == G1_DIGESTS["Q"]
+def _g1_ops(tc, P, Q):
+    """Every port route of the G1 add and double on (P, Q)."""
     f = tc.fq
     add = jadd_formula(f, P, Q, select=f.select,
                        where_zero=lambda pr, a: f.select(
                            pr, torch.zeros_like(a), a))
-    assert _digest(add) == G1_DIGESTS["add"]
-    for got in (dp.pallas_jadd(f, P, Q), dp.pallas_jadd_t(f, P, Q),
-                tc.add(P, Q)):
-        assert _digest(got) == G1_DIGESTS["add"]
-    for got in (jdbl_formula(f, P), dp.pallas_jdbl(f, P),
-                dp.pallas_jdbl_t(f, P), tc.double(P)):
-        assert _digest(got) == G1_DIGESTS["dbl"]
+    return ({"jadd_formula": add, "pallas_jadd": dp.pallas_jadd(f, P, Q),
+             "pallas_jadd_t": dp.pallas_jadd_t(f, P, Q),
+             "Curve.add": tc.add(P, Q)},
+            {"jdbl_formula": jdbl_formula(f, P),
+             "pallas_jdbl": dp.pallas_jdbl(f, P),
+             "pallas_jdbl_t": dp.pallas_jdbl_t(f, P),
+             "Curve.double": tc.double(P)})
+
+
+def test_g1_point_ops_match_jax():
+    tc, P, Q, _ = _g1_edge_points()
+    adds, dbls = _g1_ops(tc, P, Q)
+    for name, got in adds.items():
+        assert _rows(got) == _want("g1", "add"), name
+    for name, got in dbls.items():
+        assert _rows(got) == _want("g1", "dbl"), name
+
+
+@pytest.mark.slow
+def test_g1_point_ops_match_jax_live():
+    """The same, against the JAX formulas run now under jax.jit."""
+    import jax.numpy as jnp
+    from node_fhe_accelerate_tpu.zk.curve import (
+        jadd_formula as jax_jadd, jdbl_formula as jax_jdbl)
+    tc, P, Q, (jc, jP, jQ) = _g1_edge_points()
+    f = jc.fq
+    want_add = jax.jit(lambda p, q: jax_jadd(
+        f, p, q, select=f.select,
+        where_zero=lambda pr, a: f.select(pr, jnp.zeros_like(a), a)))(jP, jQ)
+    want_dbl = jax.jit(lambda p: jax_jdbl(f, p))(jP)
+    adds, dbls = _g1_ops(tc, P, Q)
+    for ops, want, op in ((adds, want_add, "add"), (dbls, want_dbl, "dbl")):
+        for name, got in ops.items():
+            _assert_planes(got, want, name)
+        assert _rows(want) == _want("g1", op)
+
+
+def _g2_edge_points(f, P, dbl, neg):
+    """tests/test_digits_pallas.py:136-156: Q = 4P, then P[5] = infinity,
+    (P[6], Q[6]) equal and (P[7], Q[7]) inverses."""
+    Q = [np.array(c) for c in dbl(f, dbl(f, P))]
+    P = [np.array(c) for c in P]
+    P[2][5] = 0
+    for c_q, c_p in zip(Q, P):
+        c_q[6:8] = c_p[6:8]
+    Q[1][7] = np.asarray(neg(P[1][7]))
+    return P, Q
+
+
+def _g2_port_points():
+    f = bn254_fq2(device="cpu")
+    P = points_from_numpy(SimpleNamespace(device=torch.device("cpu")),
+                          [np.asarray(c)
+                           for c in jax_bn254_g2().generator((8,))])
+    P, Q = _g2_edge_points(f, P, jdbl_formula,
+                           lambda y: f.neg(torch.from_numpy(y)))
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    return f, points_from_numpy(cpu, P), points_from_numpy(cpu, Q)
 
 
 def test_g2_point_ops_through_tfield2_match_jax():
     """G2 over Fq2 through _TField2 (Karatsuba over K9's plain version) on
     inputs made with the JAX bn254_g2."""
+    f, P, Q = _g2_port_points()
+    assert _rows(Q) == _want("g2", "Q")
+    assert _rows(dp.pallas_jadd_t(f, P, Q)) == _want("g2", "add")
+    assert _rows(dp.pallas_jdbl_t(f, P)) == _want("g2", "dbl")
+
+
+@pytest.mark.slow
+def test_g2_point_ops_through_tfield2_match_jax_live():
+    """The same, against the JAX Field2 formulas evaluated now, eagerly."""
+    import jax.numpy as jnp
+    from node_fhe_accelerate_tpu.zk.curve import (
+        jadd_formula as jax_jadd, jdbl_formula as jax_jdbl)
     jc = jax_bn254_g2()
-    f = bn254_fq2(device="cpu")
-    P = points_from_numpy(SimpleNamespace(device=torch.device("cpu")),
-                          [np.asarray(c) for c in jc.generator((8,))])
-    Q = jdbl_formula(f, jdbl_formula(f, P))
-    P = (P[0], P[1], P[2].clone())
-    P[2][5] = 0
-    Q = tuple(c.clone() for c in Q)
-    for c_q, c_p in zip(Q, P):
-        c_q[6] = c_p[6]
-        c_q[7] = c_p[7]
-    Q[1][7] = f.neg(P[1][7])
-    assert _digest(P) == G2_DIGESTS["P"] and _digest(Q) == G2_DIGESTS["Q"]
-    assert _digest(dp.pallas_jadd_t(f, P, Q)) == G2_DIGESTS["add"]
-    assert _digest(dp.pallas_jdbl_t(f, P)) == G2_DIGESTS["dbl"]
+    jf = jc.fq
+    jP, jQ = _g2_edge_points(jf, jc.generator((8,)), jax_jdbl, jf.neg)
+    jP, jQ = tuple(map(jnp.asarray, jP)), tuple(map(jnp.asarray, jQ))
+    want_add = jax_jadd(jf, jP, jQ, select=jf.select,
+                        where_zero=lambda pr, a: jf.select(
+                            pr, jnp.zeros_like(a), a))
+    want_dbl = jax_jdbl(jf, jP)
+    f, P, Q = _g2_port_points()
+    _assert_planes(Q, jQ, "Q")
+    _assert_planes(dp.pallas_jadd_t(f, P, Q), want_add, "pallas_jadd_t")
+    _assert_planes(dp.pallas_jdbl_t(f, P), want_dbl, "pallas_jdbl_t")
+    for got, op in ((jQ, "Q"), (want_add, "add"), (want_dbl, "dbl")):
+        assert _rows(got) == _want("g2", op)
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_do():
