@@ -24,21 +24,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    batch; then, at batch 4096,
    one CMux step through cmux_step and through cmux_step_slabs (v3, v2) on
    a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
-   TFHE_BOOT_128_L2-shaped row (k=1, N=1024); the whole ladder through
-   ladder_tiles and ladder_steps over all 630 rows of the committed key and
-   over a short ladder at the L2 shape; ladder_steps also on a short
-   truncated-key ladder (drop=1);
+   TFHE_BOOT_128_L2-shaped row (k=1, N=1024), and cmux_step again at a
+   ragged batch of 4000; the whole ladder through ladder_tiles and
+   ladder_steps over all 630 rows of the committed key and over a short
+   ladder at the L2 shape; ladder_steps (on the K-major slabs of
+   build_all_step_kslabs) also on a short truncated-key ladder (drop=1)
+   and on a short ladder at the ragged batch;
 3. a full 630-step ``bootstrap_with_test_poly`` on the committed K4 key at
    batch 256, once through the per-step kernel backend and once through
    "mxu" -- bit-equal;
 4. the main paths at full width: port keygen at TFHE_BOOT_128_K4 from a
-   seeded torch.Generator, ``prepare_bsk`` to slabs, 4096 messages
-   encrypted; then, each with the launch counts set to 0 just before and
-   read just after: one bootstrap through the per-step backend (630
-   launches), the direct slab-step entries once each, 3 chained bootstraps
+   seeded torch.Generator, ``prepare_bsk`` to the K-major slabs (its time
+   and bytes), 4096 messages encrypted; then, each with the launch counts
+   set to 0 just before and read just after: one bootstrap through the
+   per-step backend (630 launches), one through the plain "mxu" backend
+   (the port's library path, no kernel launch; timed as the end-to-end
+   yardstick), the direct slab-step entries once each, 3 chained bootstraps
    through "mxu_fused" and 3 through "pallas_fused" (one ladder launch per
    bootstrap, each ending in a synchronize, decode checked, bit-equal to
-   the per-step backend), and a ``detect_duplicate`` with a known answer;
+   the per-step and "mxu" backends), and a ``detect_duplicate`` with a
+   known answer;
    then the NTT paths, counts likewise: keys from one generator state at
    TFHE_BOOT_128_K4 through "ntt" and "crt", one bootstrap of 256 each,
    bit-equal to "pallas" on its key from the same state (630 forward and
@@ -78,6 +83,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -184,6 +190,25 @@ def step_work(b, kp1, n, lvl, planes):
     contraction, and acc in, out and rot."""
     return (b * (lvl * kp1 * n) * (kp1 * planes * n),
             2 * b * kp1 * n * 4 + b * 4)
+
+
+def ptxas_summary(text):
+    """'kernel<P>: R registers, S bytes spilled' per entry function of a
+    ptxas -v log."""
+    out, name = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"_kernelILi(\d+)E", line)
+            name = f"P={m.group(1)}" if m else "kernel"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                       "spilled")
+            name = None
+    return out
 
 
 def random_u32(gen, shape):
@@ -295,6 +320,9 @@ def main() -> int:
     for lib in libs:
         log(f"--- {lib.source.name} (nvcc {lib.info['seconds']} s)")
         log(lib.info["log"].strip())
+    for lib in (cmux.STEP_LIB, ladder.STEPS_LIB):
+        log(f"phase 1: {lib.source.name} (wgmma): "
+            + "; ".join(ptxas_summary(lib.info["log"])))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     dev = torch.device("cuda")
     err = dict.fromkeys(["cmux_step", "v3", "v2", "ladder_tiles",
@@ -443,6 +471,11 @@ def main() -> int:
     check_steps("L2 (k=1, N=1024)", acc2, rots2[0], g2[0],
                 cmux.build_diag_slabs(torch.cat([g2[0], g2[0]], dim=-1)),
                 pl2.pbs_base_log)
+    ragged = 4000
+    worse("cmux_step", check_equal(
+        "cmux_step K4 ragged", cmux.cmux_step(acc[:ragged], rot[:ragged],
+                                              row, base_log),
+        cmux.cmux_step_reference(acc[:ragged], rot[:ragged], row, base_log)))
 
     # whole ladders: the committed K4 key (630 rows), a short L2 ladder, and
     # a short truncated-key ladder for ladder_steps
@@ -454,7 +487,7 @@ def main() -> int:
     worse("ladder_tiles", check_equal(
         "ladder_tiles K4, 630 steps",
         ladder.blind_rotate_fused(acc, rots, bsk.ggsw_i8, base_log), want))
-    slabs_all = cmux.build_all_step_slabs(bsk.ggsw_i8)
+    slabs_all = cmux.build_all_step_kslabs(bsk.ggsw_i8)
     want_s, plain_steps_ms = timed_ms(
         lambda: ladder.blind_rotate_fused_steps_reference(
             acc, rots, slabs_all, base_log))
@@ -470,7 +503,7 @@ def main() -> int:
         ladder.blind_rotate_fused(acc2, rots2, g2, pl2.pbs_base_log),
         ladder.blind_rotate_fused_reference(acc2, rots2, g2,
                                             pl2.pbs_base_log)))
-    slabs2 = cmux.build_all_step_slabs(g2)
+    slabs2 = cmux.build_all_step_kslabs(g2)
     worse("ladder_steps", check_equal(
         f"ladder_steps L2, {short} steps",
         ladder.blind_rotate_fused_steps(acc2, rots2, slabs2,
@@ -482,7 +515,7 @@ def main() -> int:
                     ext_backend="mxu_fused", device=dev)
     gt = et.generate_bootstrap_key(gen, et.lwe_keygen(gen),
                                    et.glwe_keygen(gen)).ggsw_i8
-    slabs_t = cmux.build_all_step_slabs(gt)
+    slabs_t = cmux.build_all_step_kslabs(gt)
     want_t = acc
     for i in range(short):
         want_t = et.cmux(gt[i], want_t,
@@ -497,6 +530,15 @@ def main() -> int:
         f"ladder_steps K4 drop=1, {short} steps vs mxu algebra", got_t,
         want_t))
     del et, gt, slabs_t, want_t, got_t
+    slabs_r = cmux.build_all_step_kslabs(bsk.ggsw_i8[:short])
+    worse("ladder_steps", check_equal(
+        f"ladder_steps K4 ragged, {short} steps",
+        ladder.blind_rotate_fused_steps(acc[:ragged], rots[:short, :ragged],
+                                        slabs_r, base_log),
+        ladder.blind_rotate_fused_reference(acc[:ragged],
+                                            rots[:short, :ragged],
+                                            bsk.ggsw_i8[:short], base_log)))
+    del slabs_r
 
     # ---- phase 3: whole ladder on the committed key, per-step kernel vs mxu
     lwe = LweCiphertext(a=random_u32(gen, (256, pk4.n_lwe)),
@@ -531,8 +573,8 @@ def main() -> int:
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     log(f"phase 4: keygen {keygen_s:.2f} s; prepare_bsk(form='slabs') "
-        f"{prepare_s:.3f} s, slabs {tuple(key.ggsw_slabs.shape)} = "
-        f"{key.ggsw_slabs.numel()} bytes")
+        f"{prepare_s:.3f} s, K-major slabs {tuple(key.ggsw_kslabs.shape)} = "
+        f"{key.ggsw_kslabs.numel()} bytes")
     msgs = torch.arange(BATCH, device=dev) % 2
     ct0 = eng.lwe_encrypt(gen, msgs, lwe_sk)
     tp = eng.default_test_poly()
@@ -580,6 +622,20 @@ def main() -> int:
         "per-step", cmux_step=pk4.n_lwe)["cmux_step"]})
     expect_decode("per-step", first)
     rates["pallas"] = BATCH / sum(secs)
+    # the port's library path ("mxu": the plain contraction on the card,
+    # no kernel of csrc/), one bootstrap, as the end-to-end yardstick
+    eng_mxu = TfheEngine(pk4, ext_backend="mxu", device=dev)
+    zero_counts()
+    (first_mxu,), secs = chained(eng_mxu, ct0, key, tp, 1)
+    expect_counts("mxu")
+    if not same_lwe(first_mxu, first):
+        raise AssertionError("phase 4: the mxu bootstrap differs from the "
+                             "per-step backend")
+    rates["mxu"] = BATCH / sum(secs)
+    log(f"phase 4: mxu (plain) backend, 1 bootstrap of {BATCH}: "
+        f"{secs[0]:.4f} s -> {rates['mxu']:.1f} bootstraps/s; == per-step "
+        "backend; no kernel launches")
+    del first_mxu, eng_mxu
     # the direct slab-step entries, on the first step of that bootstrap
     acc_s = eng.ring.rotate(eng._test_poly_acc(ct0.b.shape, tp),
                             (0 - eng._rotations(ct0.b))[..., None])
@@ -869,10 +925,10 @@ def main() -> int:
             steps * int_mm_ms),
         "ladder_steps": (
             cuda_ms(lambda: ladder.blind_rotate_fused_steps(
-                acc, rots, key.ggsw_slabs, base_log), 2, warmup=1),
+                acc, rots, key.ggsw_kslabs, base_log), 2, warmup=1),
             plain_steps_ms,
             bound(steps * macs, io_bytes + 4 * BATCH * (steps - 1)
-                  + key.ggsw_slabs.numel(), peak_ops, peak_bytes),
+                  + key.ggsw_kslabs.numel(), peak_ops, peak_bytes),
             steps * int_mm_ms),
     }
     plain_slabs_ms = cuda_ms(lambda: cmux.cmux_step_slabs_reference(

@@ -16,7 +16,7 @@ External-product backends, under the reference's names:
 * ``"pallas_fused"``: the whole ladder in one launch, batch tile outer
   (ops/ladder.py ``blind_rotate_fused``), on the key as stored.
 * ``"mxu_fused"``: the whole ladder in one launch, steps outer
-  (ops/ladder.py ``blind_rotate_fused_steps``), on the slabs of
+  (ops/ladder.py ``blind_rotate_fused_steps``), on the K-major slabs of
   ``prepare_bsk(form="slabs")``.
 * ``"mxu"``: the plain ``external_product_mxu`` algebra (rotate, then
   cmux), the reference the kernels are held against.
@@ -48,7 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import i8 as i8ops
-from ..ops.cmux import (build_all_step_slabs, build_all_step_tiles,
+from ..ops.cmux import (build_all_step_kslabs, build_all_step_tiles,
                         cmux_step, external_product_plain)
 from ..ops.ladder import blind_rotate_fused, blind_rotate_fused_steps
 from ..ops.u32 import lshr, matmul_mod32
@@ -150,9 +150,12 @@ class BootstrapKey:
     * ``ggsw_tiles``: per-step diagonal Toeplitz tiles, int8
       (n, lvl, k+1, k+1, P, 2*nt-1, 128, 128), set by
       ``TfheEngine.prepare_bsk(form="tiles")``;
-    * ``ggsw_slabs``: per-step rt-major slabs for the "mxu_fused" backend,
-      int8 (n, nt, lvl*(k+1)*N, (k+1)*P*128), set by
-      ``prepare_bsk(form="slabs")``.
+    * ``ggsw_slabs``: per-step rt-major slabs in the reference's layout,
+      int8 (n, nt, lvl*(k+1)*N, (k+1)*P*128), as a key converted from the
+      JAX package carries them (``convert.bsk_from_numpy``);
+    * ``ggsw_kslabs``: the K-major slabs the "mxu_fused" backend reads,
+      int8 (n, (k+1)*P*N, lvl*(k+1)*N) (ops/cmux.py
+      ``build_all_step_kslabs``), set by ``prepare_bsk(form="slabs")``.
     """
     ksk_a: Any
     ksk_b: Any
@@ -162,6 +165,7 @@ class BootstrapKey:
     ggsw_crt: Any = None
     ggsw_tiles: Any = None
     ggsw_slabs: Any = None
+    ggsw_kslabs: Any = None
 
 
 def _row(g, i):
@@ -398,25 +402,29 @@ class TfheEngine:
                     form: str | None = None) -> BootstrapKey:
         """Precompute the per-step Toeplitz expansion once per key.
 
-        form="slabs": the rt-major slabs the "mxu_fused" ladder reads
-        (8.26 GB at TFHE_BOOT_128_K4), in the reference's layout -- the
-        kernel reads that layout as it is, so no permuted copy is kept.
-        form="tiles": the diagonal 128x128 tiles (6.19 GB at K4); no kernel
-        of the port reads them (the per-step kernel takes the key row as
-        stored), they are kept for parity with the reference.  Default: the
-        form this engine's backend consumes.  Idempotent; the returned key
-        drops into every int8 backend unchanged; a key without the int8 form
-        ("ntt", "crt") is returned as it is."""
+        form="slabs": the K-major slabs the "mxu_fused" ladder kernel reads
+        (``ggsw_kslabs``, 8.26 GB at TFHE_BOOT_128_K4), built from
+        ``ggsw_i8``.  The reference layout itself is not built here: no
+        kernel reads it, and the K-major form replaces it in the prepared
+        key (a key converted from the JAX package keeps the slabs it came
+        with, unread).  form="tiles": the diagonal 128x128 tiles (6.19 GB
+        at K4); no kernel of the port reads them (the per-step kernel takes
+        the key row as stored), they are kept for parity with the
+        reference.  Default: the form this engine's backend
+        consumes.  Idempotent; the returned key drops into every int8
+        backend unchanged; a key without the int8 form ("ntt", "crt") is
+        returned as it is."""
         if form is None:
             form = "slabs" if self.backend == "mxu_fused" else "tiles"
         if form not in ("slabs", "tiles"):
             raise ValueError(f"unknown form {form!r}: 'slabs' or 'tiles'")
-        field = "ggsw_" + form
+        field = "ggsw_kslabs" if form == "slabs" else "ggsw_tiles"
         if bsk.ggsw_i8 is None or getattr(bsk, field) is not None:
             return bsk
-        build = build_all_step_slabs if form == "slabs" \
-            else build_all_step_tiles
-        return dataclasses.replace(bsk, **{field: build(bsk.ggsw_i8)})
+        build = build_all_step_tiles if form == "tiles" \
+            else build_all_step_kslabs
+        built = build(bsk.ggsw_i8)
+        return dataclasses.replace(bsk, **{field: built})
 
     # ------------------------------------------------------------------
     # External product / CMux
@@ -517,12 +525,11 @@ class TfheEngine:
         rots = rots.t().contiguous()                      # (n_lwe, B)
         g = self._key_form(bsk)
         if self.backend == "mxu_fused":
-            # Slabs come from prepare_bsk(form="slabs"); without them they
-            # are built here, on every call: prepare once in a service.
-            slabs = bsk.ggsw_slabs
-            if slabs is None:
-                slabs = build_all_step_slabs(g)
-            planes = slabs.shape[-1] // (kp1 * 128)
+            # The K-major slabs come from prepare_bsk(form="slabs"); without
+            # them they are built here, on every call: prepare once in a
+            # service.
+            slabs = self.prepare_bsk(bsk, "slabs").ggsw_kslabs
+            planes = slabs.shape[1] // (kp1 * n)
             if planes != 4 - p.bsk_drop_planes:
                 raise ValueError(
                     f"BSK slabs carry {planes} digit planes but engine "

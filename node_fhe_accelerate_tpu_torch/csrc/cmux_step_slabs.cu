@@ -53,11 +53,11 @@ cmux_step_slabs_kernel(const uint32_t* __restrict__ acc,
   digit_phase(acc, rot, dig, rs, b0, kTileRows, batch, kp1, lvl, n, base_log);
   __syncthreads();
   if (kDigitStationary) {
-    slab_mma_phase<1, 2, false>(dig, rs, slabs, acc, out, b0, kTileRows,
-                                batch, kp1, lvl, planes, n, 0);
+    slab_mma_phase<1, 2>(dig, rs, slabs, acc, out, b0, kTileRows, batch, kp1,
+                         lvl, planes, n, 0);
   } else {
-    slab_mma_phase<2, 1, false>(dig, rs, slabs, acc, out, b0, kTileRows,
-                                batch, kp1, lvl, planes, n, 0);
+    slab_mma_phase<2, 1>(dig, rs, slabs, acc, out, b0, kTileRows, batch, kp1,
+                         lvl, planes, n, 0);
   }
 }
 

@@ -6,7 +6,8 @@ of the ``cmux_step_pallas`` / ``cmux_step_tiles`` entries and the
     out = acc + sum_p 256^p * (digits(X^rot * acc - acc) x Toeplitz(g~_p))
 
 * ``cmux_step`` reads the bootstrap key's row as stored and launches
-  ``csrc/cmux_step.cu`` (the reference's ``_cmux_kernel_v1``);
+  ``csrc/cmux_step.cu`` (the reference's ``_cmux_kernel_v1``), which
+  expands the Toeplitz weights on chip;
 * ``cmux_step_slabs`` reads the diagonal slabs of ``build_diag_slabs`` and
   launches ``csrc/cmux_step_slabs.cu`` in one of two loop orders (the
   reference's ``_cmux_kernel_v3`` and ``_cmux_kernel`` "v2").
@@ -14,7 +15,9 @@ of the ``cmux_step_pallas`` / ``cmux_step_tiles`` entries and the
 A CUDA tensor launches the kernel (built at first use, see ``_build.py``)
 or raises; only a CPU tensor takes the plain version.  The ``build_*``
 functions are plain torch on any device, as they are XLA outside every
-Pallas body in the reference.
+Pallas body in the reference; ``build_all_step_kslabs`` makes the port's
+own K-major form of the reference's rt-major slabs from the key rows,
+which the steps-outer ladder kernel reads.
 """
 from __future__ import annotations
 
@@ -30,15 +33,17 @@ __all__ = ["cmux_step", "cmux_step_reference", "cmux_step_slabs",
            "cmux_step_slabs_reference", "external_product_plain",
            "build_diag_tiles", "build_diag_slabs", "build_rt_slabs",
            "build_all_step_tiles", "build_all_step_slabs",
-           "STEP_LIB", "SLABS_LIB"]
+           "build_all_step_kslabs", "batch_chunks", "STEP_LIB",
+           "SLABS_LIB"]
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 STEP_LIB = KernelLibrary(
-    "cmux_step.cu", {"nfa_cmux_step": [_PTR] * 4 + [_INT] * 6 + [_PTR]})
+    "cmux_step.cu", {"nfa_cmux_step": [_PTR] * 6 + [_INT] * 6 + [_PTR]})
 SLABS_LIB = KernelLibrary(
     "cmux_step_slabs.cu",
     {"nfa_cmux_step_slabs": [_PTR] * 4 + [_INT] * 7 + [_PTR]})
 BLOCK = 128      # block-Toeplitz tile edge of the prepared weights
+KTILE = 128      # batch rows of a tile of the wgmma kernels
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +122,8 @@ def build_rt_slabs(ghat2: torch.Tensor) -> torch.Tensor:
     (nt, lvl*(k+1)*N, (k+1)*P*128): slab rt is the weight matrix W_rt with
     W_rt[(l, j, ct*128 + c), (jp, p, r)] = T[128*ct + c, 128*rt + r], the
     diagonal resolved at build time.  The layout is the reference's, column
-    axis contiguous; the ladder kernel reads it as it is and transposes
-    bytes in registers, so no permuted copy is kept beside it."""
+    axis contiguous; the ladder kernel reads the same bytes K-major
+    (``build_all_step_kslabs``)."""
     return _rt_slabs(ghat2[..., :ghat2.shape[-1] // 2])
 
 
@@ -147,6 +152,35 @@ def build_all_step_slabs(ggsw_i8: torch.Tensor) -> torch.Tensor:
     int8 (n_steps, nt, lvl*(k+1)*N, (k+1)*P*128), the layout
     ``build_rt_slabs`` documents."""
     return _build_per_step(ggsw_i8, _rt_slabs)
+
+
+def _kmajor_rows(g: torch.Tensor) -> torch.Tensor:
+    """build_all_step_kslabs on one key row g (lvl, k+1, k+1, P, 2N)."""
+    lvl, kp1, _, planes, two_n = g.shape
+    n = two_n // 2
+    if n % BLOCK:
+        raise ValueError(f"N={n} must be a multiple of {BLOCK}")
+    e = torch.arange(n, device=g.device)
+    t = g[..., torch.remainder(e[:, None] - e[None, :], two_n)]
+    # (l, j, jp, P, r = (block, q, w), c) -> (jp, block, q, P, w, l, j, c)
+    t = t.reshape(lvl, kp1, kp1, planes, n // 64, 8, 8, n)
+    return t.permute(2, 4, 5, 3, 6, 0, 1, 7).reshape(kp1 * planes * n,
+                                                     lvl * kp1 * n)
+
+
+def build_all_step_kslabs(ggsw_i8: torch.Tensor) -> torch.Tensor:
+    """K-major Toeplitz slabs for every blind-rotate step, the weight form
+    of the steps-outer ladder kernel (``csrc/ladder_steps.cu``).
+
+    ggsw_i8: int8 (n_steps, lvl, k+1, k+1, P, 2N).  Returns int8
+    (n_steps, (k+1)*P*N, lvl*(k+1)*N): per step one row per output column,
+    row ((jp*N/64 + b)*8 + q)*8P + 8p + w for coefficient r = 64b + 8q + w
+    of component jp and plane p, holding T[c, r] = g~[(r - c) mod 2N] of
+    row (l, j, jp, p) at column (l*(k+1) + j)*N + c.  The same bytes as
+    ``build_all_step_slabs``, transposed so that the contraction index is
+    contiguous (wgmma reads 8-bit operands only K-major) and the columns of
+    a 64-coefficient tile grouped by coefficient block, plane, position."""
+    return _build_per_step(ggsw_i8, _kmajor_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +272,31 @@ def cmux_step_slabs_reference(acc: torch.Tensor, rot: torch.Tensor,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+DIGIT_BYTES_LIMIT = 1 << 31
+
+
+def batch_chunks(batch: int, kdim: int) -> list[tuple[int, int]]:
+    """Row ranges [start, stop) that split a batch into launches of the
+    wgmma kernels.  Their digit buffer (``digit_scratch``) is indexed with
+    32-bit offsets, so each launch's buffer, rows padded to a whole tile of
+    KTILE, stays below DIGIT_BYTES_LIMIT bytes; every range but the last is
+    a multiple of KTILE rows.  Rows are independent, so the launches give
+    what one launch over the batch would."""
+    step = (DIGIT_BYTES_LIMIT - 1) // kdim // KTILE * KTILE
+    if step == 0:
+        raise ValueError(f"{kdim} digit bytes per row: no tile of {KTILE} "
+                         f"rows stays below {DIGIT_BYTES_LIMIT} bytes")
+    return [(i, min(i + step, batch)) for i in range(0, batch, step)]
+
+
+def digit_scratch(batch: int, kdim: int, device) -> torch.Tensor:
+    """The digits buffer of the wgmma kernels: int8 (rows, kdim), rows
+    padded to a whole tile of KTILE (the padding rows are never stored).
+    ``batch`` is one range of ``batch_chunks``."""
+    rows = -(-batch // KTILE) * KTILE
+    return torch.empty((rows, kdim), dtype=torch.int8, device=device)
+
+
 def check_acc_rot(acc: torch.Tensor, rot: torch.Tensor, rot_shape) -> None:
     if acc.dtype != torch.int32 or acc.dim() != 3 or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous int32 (B, k+1, N) tensor")
@@ -282,10 +341,10 @@ def cmux_step(acc: torch.Tensor, rot: torch.Tensor, ggsw_i8_row: torch.Tensor,
 
     acc int32 (B, k+1, N) torus bits; rot int32 (B,), any value (reduced
     mod 2N); ggsw_i8_row int8 (lvl, k+1, k+1, P, 2N), one step's row of
-    BootstrapKey.ggsw_i8.  A CUDA tensor launches the Hopper kernel (and
-    counts it in ``cmux_step.launches``); a CPU tensor takes the plain
-    version.  An empty batch returns an empty tensor and launches
-    nothing."""
+    BootstrapKey.ggsw_i8.  A CUDA tensor launches the Hopper kernel once
+    per range of ``batch_chunks`` (counted in ``cmux_step.launches``; it
+    needs N % 128 == 0); a CPU tensor takes the plain version.  An empty
+    batch returns an empty tensor and launches nothing."""
     check_acc_rot(acc, rot, acc.shape[:1])
     b, kp1, n = acc.shape
     g = ggsw_i8_row
@@ -298,11 +357,18 @@ def cmux_step(acc: torch.Tensor, rot: torch.Tensor, ggsw_i8_row: torch.Tensor,
         return torch.empty_like(acc)
     if acc.device.type == "cpu":
         return cmux_step_reference(acc, rot, g, base_log)
+    if n % BLOCK:
+        raise ValueError(f"N={n}: the kernel needs N % {BLOCK} == 0")
     out = torch.empty_like(acc)
-    launch(STEP_LIB.load().nfa_cmux_step, "cmux_step", acc.device,
-           acc.data_ptr(), rot.data_ptr(), g.data_ptr(), out.data_ptr(),
-           b, kp1, lvl, planes, n, base_log)
-    cmux_step.launches += 1
+    chunks = batch_chunks(b, lvl * kp1 * n)
+    dig = digit_scratch(chunks[0][1], lvl * kp1 * n, acc.device)
+    for start, stop in chunks:
+        counter = torch.zeros(1, dtype=torch.int32, device=acc.device)
+        launch(STEP_LIB.load().nfa_cmux_step, "cmux_step", acc.device,
+               acc[start].data_ptr(), rot[start].data_ptr(), g.data_ptr(),
+               out[start].data_ptr(), dig.data_ptr(), counter.data_ptr(),
+               stop - start, kp1, lvl, planes, n, base_log)
+        cmux_step.launches += 1
     return out
 
 

@@ -10,8 +10,8 @@ For every step s, in order,
 
 * ``blind_rotate_fused`` (batch tile outer) reads the bootstrap key's int8
   planes as stored and launches ``csrc/ladder_tiles.cu``;
-* ``blind_rotate_fused_steps`` (steps outer) reads the rt-major slabs of
-  ``build_all_step_slabs`` and launches ``csrc/ladder_steps.cu``.
+* ``blind_rotate_fused_steps`` (steps outer) reads the K-major slabs of
+  ``build_all_step_kslabs`` and launches ``csrc/ladder_steps.cu``.
 
 A CUDA tensor launches the kernel (built at first use, see ``_build.py``)
 or raises; only a CPU tensor takes the plain version.
@@ -23,9 +23,9 @@ import ctypes
 import torch
 
 from ._build import KernelLibrary
-from .cmux import (BLOCK, check_acc_rot, check_gadget, check_weights,
-                   cmux_step_reference, contract_i8, launch,
-                   recombine_planes, step_digits)
+from .cmux import (BLOCK, batch_chunks, check_acc_rot, check_gadget,
+                   check_weights, cmux_step_reference, contract_i8,
+                   digit_scratch, launch, recombine_planes, step_digits)
 
 __all__ = ["blind_rotate_fused", "blind_rotate_fused_reference",
            "blind_rotate_fused_steps", "blind_rotate_fused_steps_reference",
@@ -35,7 +35,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 TILES_LIB = KernelLibrary(
     "ladder_tiles.cu", {"nfa_ladder_tiles": [_PTR] * 4 + [_INT] * 7 + [_PTR]})
 STEPS_LIB = KernelLibrary(
-    "ladder_steps.cu", {"nfa_ladder_steps": [_PTR] * 4 + [_INT] * 8 + [_PTR]})
+    "ladder_steps.cu", {"nfa_ladder_steps": [_PTR] * 6 + [_INT] * 8 + [_PTR]})
 
 
 def _flatten(acc: torch.Tensor, a_rots: torch.Tensor, n_steps: int):
@@ -68,21 +68,21 @@ def blind_rotate_fused_reference(acc: torch.Tensor, a_rots: torch.Tensor,
 
 def blind_rotate_fused_steps_reference(acc: torch.Tensor,
                                        a_rots: torch.Tensor,
-                                       slabs: torch.Tensor, base_log: int,
+                                       kslabs: torch.Tensor, base_log: int,
                                        drop: int = 0) -> torch.Tensor:
-    """Plain PyTorch ladder against the prepared rt-major slabs it is given
-    (so a wrong slab layout shows): per step, block-row rt is
-    digits (B, (l, j, c)) @ slabs[s, rt].  acc int32 (B, k+1, N), a_rots
-    int32 (n_steps, B), slabs int8
-    (n_steps, nt, lvl*(k+1)*N, (k+1)*P*128)."""
+    """Plain PyTorch ladder against the K-major slabs it is given (so a
+    wrong layout shows): per step, digits (B, (l, j, c)) @ kslabs[s]^T,
+    its columns (jp, block, q, p, w) put back in (jp, p, coefficient)
+    order.  acc int32 (B, k+1, N), a_rots int32 (n_steps, B), kslabs int8
+    (n_steps, (k+1)*P*N, lvl*(k+1)*N)."""
     b, kp1, n = acc.shape
-    n_steps, nt, kdim, wide = slabs.shape
-    lvl, planes = kdim // (kp1 * n), wide // (kp1 * BLOCK)
+    n_steps, cols, kdim = kslabs.shape
+    lvl, planes = kdim // (kp1 * n), cols // (kp1 * n)
     for s in range(n_steps):
         x = step_digits(acc, a_rots[s], base_log, lvl).reshape(b, kdim)
-        blocks = [contract_i8(x, slabs[s, rt]).reshape(b, kp1, planes, BLOCK)
-                  for rt in range(nt)]
-        acc = acc + recombine_planes(torch.cat(blocks, dim=-1), drop)
+        y = contract_i8(x, kslabs[s].t())
+        y = y.reshape(b, kp1, n // 64, 8, planes, 8).permute(0, 1, 4, 2, 3, 5)
+        acc = acc + recombine_planes(y.reshape(b, kp1, planes, n), drop)
     return acc
 
 
@@ -126,26 +126,27 @@ def blind_rotate_fused_steps(acc: torch.Tensor, a_rots: torch.Tensor,
     """All blind-rotate CMux steps in one launch, steps outer.
 
     acc int32 (..., k+1, N); a_rots int32 (n_steps, ...); slabs int8
-    (n_steps, nt, lvl*(k+1)*N, (k+1)*P*128) from ``build_all_step_slabs``
-    (``TfheEngine.prepare_bsk(form="slabs")``); ``drop`` is
-    TfheParams.bsk_drop_planes: plane p weighs 256^(p+drop).  A CUDA tensor
-    launches the Hopper kernel once (counted in
-    ``blind_rotate_fused_steps.launches``); a CPU tensor takes the plain
-    version.  An empty batch returns an empty tensor and launches
+    (n_steps, (k+1)*P*N, lvl*(k+1)*N), the K-major form of
+    ``build_all_step_kslabs`` (``TfheEngine.prepare_bsk(form="slabs")``);
+    ``drop`` is TfheParams.bsk_drop_planes: plane p weighs 256^(p+drop).  A
+    CUDA tensor launches the Hopper kernel once per range of
+    ``batch_chunks``, i.e. once below ~838k rows at TFHE_BOOT_128_K4
+    (counted in ``blind_rotate_fused_steps.launches``); a CPU tensor takes
+    the plain version.  An empty batch returns an empty tensor and launches
     nothing."""
-    if acc.dim() < 2 or slabs.dim() != 4:
+    if acc.dim() < 2 or slabs.dim() != 3:
         raise ValueError("acc must be (..., k+1, N) and slabs "
-                         "(n_steps, nt, lvl*(k+1)*N, (k+1)*P*128)")
+                         "(n_steps, (k+1)*P*N, lvl*(k+1)*N)")
     kp1, n = acc.shape[-2:]
-    n_steps, nt, kdim, wide = slabs.shape
-    if n % BLOCK or kdim % (kp1 * n) or wide % (kp1 * BLOCK):
+    n_steps, cols, kdim = slabs.shape
+    if n % BLOCK or kdim % (kp1 * n) or cols % (kp1 * n):
         raise ValueError(f"slabs shape {tuple(slabs.shape)} does not fit "
                          f"acc shape {tuple(acc.shape)}")
-    lvl, planes = kdim // (kp1 * n), wide // (kp1 * BLOCK)
+    lvl, planes = kdim // (kp1 * n), cols // (kp1 * n)
     flat, rots = _flatten(acc, a_rots, n_steps)
     b = flat.shape[0]
-    check_weights(slabs, (n_steps, n // BLOCK, lvl * kp1 * n,
-                          kp1 * planes * BLOCK), "slabs", flat)
+    check_weights(slabs, (n_steps, kp1 * planes * n, lvl * kp1 * n),
+                  "slabs", flat)
     check_gadget(kp1, n, lvl, planes, base_log, drop)
     if b == 0:
         return torch.empty_like(acc)
@@ -153,10 +154,17 @@ def blind_rotate_fused_steps(acc: torch.Tensor, a_rots: torch.Tensor,
         return blind_rotate_fused_steps_reference(
             flat, rots, slabs, base_log, drop).reshape(acc.shape)
     out = torch.empty_like(flat)
-    launch(STEPS_LIB.load().nfa_ladder_steps, "ladder_steps", flat.device,
-           flat.data_ptr(), rots.data_ptr(), slabs.data_ptr(),
-           out.data_ptr(), b, kp1, lvl, planes, n, base_log, drop, n_steps)
-    blind_rotate_fused_steps.launches += 1
+    chunks = batch_chunks(b, kdim)
+    dig = digit_scratch(chunks[0][1], kdim, flat.device)
+    for start, stop in chunks:
+        part = rots[:, start:stop].contiguous()   # no copy for one chunk
+        counter = torch.zeros(1, dtype=torch.int32, device=flat.device)
+        launch(STEPS_LIB.load().nfa_ladder_steps, "ladder_steps",
+               flat.device, flat[start].data_ptr(), part.data_ptr(),
+               slabs.data_ptr(), out[start].data_ptr(), dig.data_ptr(),
+               counter.data_ptr(), stop - start, kp1, lvl, planes, n,
+               base_log, drop, n_steps)
+        blind_rotate_fused_steps.launches += 1
     return out.reshape(acc.shape)
 
 

@@ -23,6 +23,7 @@ from node_fhe_accelerate_tpu_torch.convert import (
     bsk_from_numpy, bsk_to_numpy, lwe_to_numpy)
 from node_fhe_accelerate_tpu_torch.core.bootstrap import TfheEngine, TfheParams
 from node_fhe_accelerate_tpu_torch.device import tensor_to_u32
+from node_fhe_accelerate_tpu_torch.ops.cmux import build_all_step_slabs
 
 torch.set_num_threads(2)
 
@@ -125,7 +126,9 @@ def test_mxu_fused_truncated_key_matches_jax():
 @pytest.mark.parametrize("form", ["slabs", "tiles"])
 def test_prepared_jax_key_converts_field_by_field(setup, form):
     """A JAX key prepared by the JAX engine carries its tiles / slabs across;
-    they equal what the port prepares, and "mxu_fused" runs on them."""
+    the tiles equal what the port prepares, the slabs equal the port's
+    reference-layout builder, the port prepares its K-major form on such a
+    key as on its own, and "mxu_fused" runs on both keys."""
     s = setup
     jkey = JaxEngine(jax_params(s["p"]), ext_backend="mxu_fused") \
         .prepare_bsk(s["jbsk"], form=form)
@@ -138,11 +141,16 @@ def test_prepared_jax_key_converts_field_by_field(setup, form):
         else np.asarray(jkey.ggsw_slabs))
     eng = TfheEngine(s["p"], ext_backend="mxu_fused", device="cpu")
     mine = eng.prepare_bsk(s["bsk"], form=form)
-    field = "ggsw_" + form
-    assert torch.equal(getattr(key, field), getattr(mine, field))
-    assert eng.prepare_bsk(key, form=form) is key
-    if form == "slabs":
-        assert_same(eng.bootstrap(s["ct"], key), s["want"])
+    if form == "tiles":
+        assert torch.equal(key.ggsw_tiles, mine.ggsw_tiles)
+        assert eng.prepare_bsk(key, form=form) is key
+        return
+    assert torch.equal(key.ggsw_slabs, build_all_step_slabs(s["bsk"].ggsw_i8))
+    prepared = eng.prepare_bsk(key, form=form)
+    assert torch.equal(prepared.ggsw_kslabs, mine.ggsw_kslabs)
+    assert eng.prepare_bsk(prepared, form=form) is prepared
+    assert_same(eng.bootstrap(s["ct"], key), s["want"])
+    assert_same(eng.bootstrap(s["ct"], prepared), s["want"])
 
 
 def test_unported_backends_say_which_slice_brings_them(setup):

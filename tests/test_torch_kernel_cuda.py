@@ -19,7 +19,7 @@ import torch
 from node_fhe_accelerate_tpu_torch.core.bootstrap import (
     TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, TfheEngine, TfheParams)
 from node_fhe_accelerate_tpu_torch.ops.cmux import (
-    build_all_step_slabs, build_diag_slabs, cmux_step, cmux_step_reference,
+    build_all_step_kslabs, build_diag_slabs, cmux_step, cmux_step_reference,
     cmux_step_slabs, cmux_step_slabs_reference)
 from node_fhe_accelerate_tpu_torch.ops.ladder import (
     blind_rotate_fused, blind_rotate_fused_reference,
@@ -27,6 +27,7 @@ from node_fhe_accelerate_tpu_torch.ops.ladder import (
 from node_fhe_accelerate_tpu_torch.ops.ntt import (NTTContext,
                                                    negacyclic_mul_np)
 from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import PallasNTT
+from node_fhe_accelerate_tpu_torch.ops import cmux as cmux_ops
 from node_fhe_accelerate_tpu_torch.ops import digits, limbs
 from node_fhe_accelerate_tpu_torch.ops.digits_pallas import (
     _mul_t_raw, pallas_field_mul)
@@ -63,7 +64,8 @@ def random_ladder(p, batch, dev, seed, steps=1, drop=0):
                         dtype=torch.int64, device=dev).to(torch.int32)
     rots = torch.randint(-4 * n, 4 * n, (steps, batch), generator=gen,
                          dtype=torch.int32, device=dev)
-    rots[0, :6] = torch.tensor([0, n, 2 * n - 1, -1, -n - 5, 9 * n + 3])
+    edges = torch.tensor([0, n, 2 * n - 1, -1, -n - 5, 9 * n + 3])
+    rots[0, :len(edges)] = edges[:batch]
     return acc, rots, g
 
 
@@ -139,7 +141,7 @@ def test_ladder_tiles_matches_plain(cuda_device, p, batch):
 def test_ladder_steps_matches_plain(cuda_device, p, batch, drop):
     acc, rots, g = random_ladder(p, batch, cuda_device, 9, steps=5,
                                  drop=drop)
-    slabs = build_all_step_slabs(g)
+    slabs = build_all_step_kslabs(g)
     before = blind_rotate_fused_steps.launches
     got = blind_rotate_fused_steps(acc, rots, slabs, p.pbs_base_log,
                                    drop=drop)
@@ -154,16 +156,89 @@ def test_ladder_steps_matches_plain(cuda_device, p, batch, drop):
 
 @pytest.mark.cuda
 def test_ladders_take_more_tiles_than_blocks(cuda_device):
-    """A batch of more 32-row tiles than the card has resident blocks: the
-    persistent kernel loops over tiles."""
+    """A batch of more tiles than the card has resident blocks (32-row tiles
+    of ladder_tiles, 128-row x 64-coefficient tiles of ladder_steps and
+    cmux_step): the persistent kernels loop over tiles."""
     p = SMALL
     acc, rots, g = random_ladder(p, 32 * 300 + 5, cuda_device, 10, steps=3)
     want = blind_rotate_fused_reference(acc, rots, g, p.pbs_base_log)
-    got = blind_rotate_fused_steps(acc, rots, build_all_step_slabs(g),
+    got = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
                                    p.pbs_base_log)
     assert torch.equal(got, want)
     assert torch.equal(blind_rotate_fused(acc, rots, g, p.pbs_base_log),
                        want)
+    assert torch.equal(cmux_step(acc, rots[0], g[0], p.pbs_base_log),
+                       cmux_step_reference(acc, rots[0], g[0],
+                                           p.pbs_base_log))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 17, 100, 4000, 4096 + 64])
+def test_redesigned_kernels_at_ragged_batches(cuda_device, batch):
+    """The wgmma kernels (cmux_step, ladder_steps) at TFHE_BOOT_128_K4 on
+    batches that leave a partial 128-row tile, each launch counted."""
+    p = TFHE_BOOT_128_K4()
+    acc, rots, g = random_ladder(p, batch, cuda_device, 11, steps=2)
+    before = (cmux_step.launches, blind_rotate_fused_steps.launches)
+    got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
+                                     p.pbs_base_log)
+    torch.cuda.synchronize()
+    assert (cmux_step.launches, blind_rotate_fused_steps.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, cmux_step_reference(acc, rots[0], g[0],
+                                                p.pbs_base_log))
+    assert torch.equal(got_l, blind_rotate_fused_reference(
+        acc, rots, g, p.pbs_base_log))
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_split_batches_past_the_digit_limit(
+        cuda_device, monkeypatch):
+    """With the digit-buffer limit lowered to two 128-row tiles at
+    TFHE_BOOT_128_K4, a batch of 600 runs as three launches of cmux_step
+    and of ladder_steps, equal to the plain versions."""
+    p = TFHE_BOOT_128_K4()
+    kdim = p.pbs_level * (p.glwe_dim + 1) * p.poly_degree
+    monkeypatch.setattr(cmux_ops, "DIGIT_BYTES_LIMIT", 256 * kdim + 1)
+    acc, rots, g = random_ladder(p, 600, cuda_device, 12, steps=2)
+    before = (cmux_step.launches, blind_rotate_fused_steps.launches)
+    got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
+                                     p.pbs_base_log)
+    torch.cuda.synchronize()
+    assert (cmux_step.launches, blind_rotate_fused_steps.launches) == \
+        (before[0] + 3, before[1] + 3)
+    assert torch.equal(got, cmux_step_reference(acc, rots[0], g[0],
+                                                p.pbs_base_log))
+    assert torch.equal(got_l, blind_rotate_fused_reference(
+        acc, rots, g, p.pbs_base_log))
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_at_the_digit_limit(cuda_device):
+    """At TFHE_BOOT_128_K4 a batch just past the 2^31-byte digit buffer
+    (838,784 rows a launch) runs as two launches; the rows at both ends and
+    at the seam equal the plain versions, which run on those rows alone."""
+    p = TFHE_BOOT_128_K4()
+    kdim = p.pbs_level * (p.glwe_dim + 1) * p.poly_degree
+    full = (cmux_ops.DIGIT_BYTES_LIMIT - 1) // kdim // 128 * 128
+    batch = full + 300
+    acc, rots, g = random_ladder(p, batch, cuda_device, 13, steps=2)
+    before = (cmux_step.launches, blind_rotate_fused_steps.launches)
+    got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
+                                     p.pbs_base_log)
+    torch.cuda.synchronize()
+    assert (cmux_step.launches, blind_rotate_fused_steps.launches) == \
+        (before[0] + 2, before[1] + 2)
+    idx = torch.cat([torch.arange(0, 200), torch.arange(full - 200,
+                                                        full + 100),
+                     torch.arange(batch - 100, batch)]).to(cuda_device)
+    assert torch.equal(got[idx], cmux_step_reference(
+        acc[idx], rots[0, idx], g[0], p.pbs_base_log))
+    assert torch.equal(got_l[idx], blind_rotate_fused_reference(
+        acc[idx], rots[:, idx].contiguous(), g, p.pbs_base_log))
 
 
 @pytest.mark.cuda

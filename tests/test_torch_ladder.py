@@ -2,7 +2,10 @@
 fused Pallas kernels ``blind_rotate_fused`` and ``blind_rotate_fused_steps``
 in interpret mode, as tests/test_pallas_cmux.py runs them on the CPU.  On
 the CPU the port's wrappers take their plain versions; the steps-outer one
-contracts against the slabs it is given.  Inputs come from a numpy seed and
+contracts against the K-major slabs it is given, which the tests make from
+the key rows (``build_all_step_kslabs``; tests/test_torch_slabs.py holds
+that form equal to the JAX slabs rearranged).  Inputs come from a numpy
+seed and
 go through both packages (shapes of tests/test_pallas_cmux.py: 8 steps,
 N=256, k=1, lvl=3, batch 8).  Tolerance: exact equality -- every value is
 an integer mod 2^32."""
@@ -33,13 +36,15 @@ def make_inputs(seed, planes):
 
 @pytest.fixture(scope="module")
 def full():
-    """Inputs with all 4 digit planes and the JAX steps-outer result."""
+    """Inputs with all 4 digit planes, the K-major slabs the port's ladder
+    takes and the JAX steps-outer result on the reference slabs."""
     acc, rots, g = make_inputs(0, 4)
-    slabs = cmux.build_all_step_slabs(torch.from_numpy(g))
+    ref = cmux.build_all_step_slabs(torch.from_numpy(g))
     want = np.asarray(jx.blind_rotate_fused_steps(
-        jnp.asarray(acc), jnp.asarray(rots), jnp.asarray(slabs.numpy()),
+        jnp.asarray(acc), jnp.asarray(rots), jnp.asarray(ref.numpy()),
         BASE_LOG, interpret=True))
-    return acc, rots, g, slabs, want
+    return acc, rots, g, cmux.build_all_step_kslabs(torch.from_numpy(g)), \
+        want
 
 
 def port_args(acc, rots):
@@ -56,10 +61,11 @@ def test_fused_steps_matches_pallas(full):
 def test_fused_steps_truncated_key_matches_pallas():
     """drop=1: three planes, plane p weighted 256^(p+1)."""
     acc, rots, g = make_inputs(1, 3)
-    slabs = cmux.build_all_step_slabs(torch.from_numpy(g))
+    ref = cmux.build_all_step_slabs(torch.from_numpy(g))
     want = np.asarray(jx.blind_rotate_fused_steps(
-        jnp.asarray(acc), jnp.asarray(rots), jnp.asarray(slabs.numpy()),
+        jnp.asarray(acc), jnp.asarray(rots), jnp.asarray(ref.numpy()),
         BASE_LOG, drop=1, interpret=True))
+    slabs = cmux.build_all_step_kslabs(torch.from_numpy(g))
     got = ladder.blind_rotate_fused_steps(*port_args(acc, rots), slabs,
                                           BASE_LOG, drop=1)
     np.testing.assert_array_equal(tensor_to_u32(got), want)
@@ -99,11 +105,13 @@ def test_ladders_flatten_leading_axes(full):
 
 
 def test_fused_steps_sees_a_wrong_layout(full):
-    acc, rots, _, slabs, want = full
-    got = ladder.blind_rotate_fused_steps(*port_args(acc, rots),
-                                          slabs.flip(1).contiguous(),
-                                          BASE_LOG)
-    assert not np.array_equal(tensor_to_u32(got), want)
+    acc, rots, g, slabs, want = full
+    for wrong in (slabs.flip(1), slabs.flip(2),
+                  cmux.build_all_step_slabs(torch.from_numpy(g))
+                  .reshape(slabs.shape)):
+        got = ladder.blind_rotate_fused_steps(*port_args(acc, rots),
+                                              wrong.contiguous(), BASE_LOG)
+        assert not np.array_equal(tensor_to_u32(got), want)
 
 
 def test_ladders_reject_bad_inputs(full):
@@ -123,6 +131,9 @@ def test_ladders_reject_bad_inputs(full):
     with pytest.raises(ValueError):
         ladder.blind_rotate_fused_steps(a, r, slabs.to(torch.int16),
                                         BASE_LOG)
+    with pytest.raises(ValueError):     # the reference layout, not the form
+        ladder.blind_rotate_fused_steps(
+            a, r, cmux.build_all_step_slabs(gt), BASE_LOG)
 
 
 def test_empty_batch_returns_empty_without_a_launch(full):
@@ -136,3 +147,4 @@ def test_empty_batch_returns_empty_without_a_launch(full):
                                            BASE_LOG).shape == a.shape
     assert before == (ladder.blind_rotate_fused.launches,
                       ladder.blind_rotate_fused_steps.launches)
+

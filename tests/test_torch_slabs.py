@@ -138,3 +138,113 @@ def test_empty_batch_returns_empty_without_a_launch(step_inputs):
     assert cmux.cmux_step(a, r, torch.from_numpy(g), BASE_LOG).shape == a.shape
     assert cmux.cmux_step_slabs(a, r, slabs, BASE_LOG).shape == a.shape
     assert before == (cmux.cmux_step.launches, cmux.cmux_step_slabs.launches)
+
+
+# The K-major slab form of the steps-outer ladder kernel
+
+def kmajor_from_jax_slabs(s, kp1, planes):
+    """The K-major form from the JAX package's rt-major slabs, by numpy
+    alone: (steps, rt, K, jp, p, r' = (h, q, w)) -> rows
+    (jp, 2 rt + h, q, p, w), columns K."""
+    steps, nt, kdim, _ = s.shape
+    x = s.reshape(steps, nt, kdim, kp1, planes, 2, 8, 8)
+    x = np.transpose(x, (0, 3, 1, 5, 6, 4, 7, 2))
+    return x.reshape(steps, kp1 * planes * nt * 128, kdim)
+
+
+@pytest.mark.parametrize("n,kp1,planes", [(256, 2, 4), (256, 5, 3),
+                                          (512, 3, 3)],
+                         ids=["N256", "N256_k4_P3", "N512_k2_P3"])
+def test_kmajor_form_is_jax_slabs_rearranged(n, kp1, planes):
+    g = random_planes(6, n, lvl=2, kp1=kp1, planes=planes, steps=2)
+    jax_slabs = np.asarray(jx.build_all_step_slabs(jnp.asarray(g)))
+    want = kmajor_from_jax_slabs(jax_slabs, kp1, planes)
+    got = cmux.build_all_step_kslabs(torch.from_numpy(g))
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kmajor_form_is_the_toeplitz_of_the_key_rows():
+    """Entry by entry against the key rows ggsw_i8: row
+    ((jp N/64 + b) 8 + q) 8P + 8p + w, column (l (k+1) + j) N + c holds
+    g[s, l, j, jp, p, (64b + 8q + w - c) mod 2N]."""
+    n, kp1, lvl, planes = 256, 2, 3, 4
+    g = random_planes(7, n, lvl=lvl, kp1=kp1, planes=planes, steps=2)
+    got = cmux.build_all_step_kslabs(torch.from_numpy(g)).numpy()
+    s, row, col = np.meshgrid(np.arange(2), np.arange(kp1 * planes * n),
+                              np.arange(lvl * kp1 * n), indexing="ij")
+    jp, rest = np.divmod(row, planes * n)
+    b, rest = np.divmod(rest, 64 * planes)
+    q, rest = np.divmod(rest, 8 * planes)
+    p, w = np.divmod(rest, 8)
+    lj, c = np.divmod(col, n)
+    l, j = np.divmod(lj, kp1)
+    np.testing.assert_array_equal(
+        got, g[s, l, j, jp, p, (64 * b + 8 * q + w - c) % (2 * n)])
+
+
+def test_prepare_bsk_builds_the_form_once(monkeypatch):
+    """prepare_bsk(form="slabs") builds the K-major form once per key, from
+    the key rows, also when the key carries reference slabs; it is
+    idempotent, and the "mxu_fused" ladder on a prepared key builds
+    nothing."""
+    from node_fhe_accelerate_tpu_torch.core import bootstrap as bt
+    p = bt.TfheParams(n_lwe=2, poly_degree=256, glwe_dim=1, pbs_base_log=7,
+                      pbs_level=3, ks_base_log=4, ks_level=8)
+    rows = torch.from_numpy(random_planes(8, 256, steps=2))
+    key = bt.BootstrapKey(ksk_a=None, ksk_b=None, params=p, ggsw_i8=rows)
+    calls = []
+    real = bt.build_all_step_kslabs
+    monkeypatch.setattr(bt, "build_all_step_kslabs",
+                        lambda g: calls.append(1) or real(g))
+    eng = bt.TfheEngine(p, ext_backend="mxu_fused", device="cpu")
+    prepared = eng.prepare_bsk(key)
+    assert len(calls) == 1 and prepared.ggsw_slabs is None
+    assert torch.equal(prepared.ggsw_kslabs, real(rows))
+    assert eng.prepare_bsk(prepared) is prepared
+    assert eng.prepare_bsk(prepared, form="slabs") is prepared
+    acc = torch.zeros((3, 2, 256), dtype=torch.int32)
+    lwe = bt.LweCiphertext(a=torch.zeros((3, 2), dtype=torch.int32),
+                           b=torch.zeros(3, dtype=torch.int32))
+    eng.blind_rotate(acc, lwe, prepared)
+    assert len(calls) == 1
+    carried = bt.BootstrapKey(ksk_a=None, ksk_b=None, params=p, ggsw_i8=rows,
+                              ggsw_slabs=cmux.build_all_step_slabs(rows))
+    from_slabs = eng.prepare_bsk(carried)
+    assert torch.equal(from_slabs.ggsw_kslabs, prepared.ggsw_kslabs)
+    assert from_slabs.ggsw_slabs is carried.ggsw_slabs
+
+
+# How the wgmma kernels' wrappers split a batch (cmux.batch_chunks)
+
+@pytest.mark.parametrize("batch,kdim,limit", [
+    (1, 2560, 1 << 31), (4096, 2560, 1 << 31),
+    (838_784, 2560, 1 << 31), (838_785, 2560, 1 << 31),
+    (2 * 838_784 + 5, 2560, 1 << 31), (600, 2560, 256 * 2560 + 1),
+    (1000, 6144, 256 * 6144)],
+    ids=["one_row", "k4_4096", "k4_full", "k4_full_plus_1",
+         "k4_two_full_plus_5", "lowered_limit", "limit_is_exclusive"])
+def test_batch_chunks_keep_each_digit_buffer_below_the_limit(
+        monkeypatch, batch, kdim, limit):
+    """Ranges cover [0, batch) in order, each a whole number of 128-row
+    tiles but the last, each padded digit buffer below the limit, and as
+    few ranges as that allows."""
+    monkeypatch.setattr(cmux, "DIGIT_BYTES_LIMIT", limit)
+    chunks = cmux.batch_chunks(batch, kdim)
+    assert chunks[0][0] == 0 and chunks[-1][1] == batch
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all((stop - start) % 128 == 0 for start, stop in chunks[:-1])
+    for start, stop in chunks:
+        rows = -(-(stop - start) // 128) * 128
+        assert 0 < stop - start and rows * kdim < limit
+        assert cmux.digit_scratch(stop - start, kdim, "meta").numel() \
+            == rows * kdim
+    most = (limit - 1) // kdim // 128 * 128
+    assert len(chunks) == -(-batch // most)
+    if limit == 256 * kdim:
+        assert most == 128
+
+
+def test_batch_chunks_refuse_a_row_too_wide_for_one_tile():
+    with pytest.raises(ValueError, match="no tile"):
+        cmux.batch_chunks(10, (1 << 31) // 128)
