@@ -5,24 +5,24 @@
 //   out = acc + sum_p 256^(p+drop) * (digits(X^rot * acc - acc) x T(g~_p))
 //
 // and differs only in where the Toeplitz weights T come from and in how
-// many steps one launch runs.  The phases are:
+// many steps one launch runs.  Two cores:
 //
-// * digit_phase: rotate, difference and balanced int8 gadget digits of a
-//   tile of batch rows, written to shared memory as dig[row][(l, j, c)];
-// * build_tables + toeplitz_mma_phase: the contraction against reversed
-//   tables H[y] = g~[(-y) mod 2N] held in shared memory (weights read from
-//   the bootstrap key's row as stored);
-// * slab_mma_phase: the contraction against prepared diagonal slabs in
-//   device memory, W[(l, j, c), (jp, p, r)] with the column axis contiguous.
+// * the mma.sync core of the slab kernels (cmux_step_slabs.cu, K2/K3):
+//   digit_phase writes the balanced int8 gadget digits of a tile of batch
+//   rows to shared memory as dig[row][(l, j, c)], and slab_mma_phase runs
+//   mma.sync m16n8k32 s8 x s8 -> s32 against prepared diagonal slabs in
+//   device memory, W[(l, j, c), (jp, p, r)] with the column axis
+//   contiguous;
+// * the Hopper core at the end of this file (cmux_step.cu K1,
+//   ladder_tiles.cu K4, ladder_steps.cu K5): warpgroup wgmma.mma_async
+//   s8 x s8 -> s32 fed from a ring of 128-byte-swizzled shared tiles under
+//   mbarriers, a digit phase into a global row-major buffer that TMA reads
+//   back as the A operand, and an epilogue that recombines the planes in
+//   registers.  B comes by TMA from K-major slabs (K5) or is expanded on
+//   chip from the key rows as stored (K1, K4).
 //
-// Those three (K2, K3, K4) run mma.sync m16n8k32 s8 x s8 -> s32.  The
-// redesigned kernels (cmux_step.cu, ladder_steps.cu) share the Hopper core
-// at the end of this file instead: warpgroup wgmma.mma_async s8 x s8 -> s32
-// fed from a ring of 128-byte-swizzled shared tiles under mbarriers, a
-// digit phase into a global row-major buffer that TMA reads back as the A
-// operand, and an epilogue that recombines the planes in registers.  All
-// recombine the base-256 planes mod 2^32 in registers before the single
-// store.
+// Both recombine the base-256 planes mod 2^32 in registers before the
+// single store.
 
 #pragma once
 
@@ -38,7 +38,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kNTiles = 4;      // 8-column MMA tiles per warp task
 constexpr int kMaxPlanes = 4;
 constexpr int kRowPad = 16;     // bytes after each digit row: spreads banks
-constexpr int kTablePad = 32;   // H runs past 2N so x + 16 + 3 never wraps
 constexpr int kBlock = 128;     // block-Toeplitz tile edge of the slabs
 
 static __device__ __forceinline__ void mma_s8(int (&c)[4],
@@ -49,14 +48,6 @@ static __device__ __forceinline__ void mma_s8(int (&c)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bytes base[x .. x+3] as one little-endian word, for any alignment of x
-// (base itself is 4-byte aligned).
-static __device__ __forceinline__ uint32_t load_word(const int8_t* base,
-                                                     int x) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(base) + (x >> 2);
-  return __funnelshift_r(w[0], w[1], (x & 3) * 8);
 }
 
 // sum_p vals[p] * 256^(p+drop) mod 2^32 over the first `planes` planes.
@@ -115,90 +106,6 @@ static __device__ __forceinline__ void digit_phase(
       drow[l * kp1 * n] = static_cast<int8_t>(
           carry ? static_cast<int>(d) - (1 << base_log)
                 : static_cast<int>(d));
-    }
-  }
-}
-
-// Reversed weight tables of one bootstrap-key row g (lvl, k+1, k+1, P, 2N):
-// tab[t * hs + y] = g[t][(-y) mod 2N], hs = 2N + kTablePad.
-static __device__ __forceinline__ void build_tables(const int8_t* g,
-                                                    int8_t* tab, int ntab,
-                                                    int n) {
-  const int two_n = 2 * n;
-  const int hs = two_n + kTablePad;
-  for (int i = threadIdx.x; i < ntab * hs; i += kThreads) {
-    const int t = i / hs;
-    const int y = i - t * hs;
-    tab[i] = g[t * two_n + ((two_n - y) & (two_n - 1))];
-  }
-}
-
-// Tensor-core contraction of the digit tile against the reversed tables and
-// the CMux add: dst = src + recombined product, for the rows of this tile.
-// Each warp task is 16 rows x 32 columns of one output component jp, for
-// all planes.  src and dst may be the same buffer: a task reads and writes
-// only its own elements.
-static __device__ __forceinline__ void toeplitz_mma_phase(
-    const int8_t* dig, int rs, const int8_t* tab, const uint32_t* src,
-    uint32_t* dst, int b0, int bt, int batch, int kp1, int lvl, int planes,
-    int n) {
-  const int two_n = 2 * n;
-  const int hs = two_n + kTablePad;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gq = lane >> 2;   // MMA groupID
-  const int tq = lane & 3;    // MMA threadID_in_group
-  const int m_tiles = bt / 16;
-  const int n_groups = n / (8 * kNTiles);
-  const int tasks = m_tiles * kp1 * n_groups;
-  for (int task = warp; task < tasks; task += kWarps) {
-    const int mt = task % m_tiles;
-    const int jp = (task / m_tiles) % kp1;
-    const int r0 = (task / (m_tiles * kp1)) * (8 * kNTiles);
-    int c_frag[kMaxPlanes][kNTiles][4] = {};
-    const int8_t* d0 = dig + (mt * 16 + gq) * rs + 4 * tq;
-    const int8_t* d1 = d0 + 8 * rs;
-    for (int lj = 0; lj < lvl * kp1; ++lj) {
-      const int8_t* tb = tab + static_cast<size_t>(lj * kp1 + jp) * planes * hs;
-      for (int c0 = 0; c0 < n; c0 += 32) {
-        const int q = lj * n + c0;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(d0 + q);
-        a[1] = *reinterpret_cast<const uint32_t*>(d1 + q);
-        a[2] = *reinterpret_cast<const uint32_t*>(d0 + q + 16);
-        a[3] = *reinterpret_cast<const uint32_t*>(d1 + q + 16);
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          // B fragment of column r = r0 + 8nt + gq, rows c0 + 4tq (+16):
-          // T[c .. c+3, r] = H[x .. x+3] with x = (c - r) mod 2N.
-          const int x = (c0 + 4 * tq - (r0 + nt * 8 + gq)) & (two_n - 1);
-#pragma unroll
-          for (int p = 0; p < kMaxPlanes; ++p) {
-            if (p < planes) {
-              const int8_t* h = tb + p * hs;
-              mma_s8(c_frag[p][nt], a, load_word(h, x), load_word(h, x + 16));
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      const int col = r0 + nt * 8 + 2 * tq;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int b = b0 + mt * 16 + gq + 8 * hh;
-        if (b >= batch) continue;
-        const size_t o = (static_cast<size_t>(b) * kp1 + jp) * n + col;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          int vals[kMaxPlanes];
-#pragma unroll
-          for (int p = 0; p < kMaxPlanes; ++p)
-            vals[p] = c_frag[p][nt][2 * hh + e];
-          dst[o + e] = src[o + e] + recombine(vals, planes, 0);
-        }
-      }
     }
   }
 }
@@ -376,7 +283,8 @@ static inline bool shape_ok(int batch, int kp1, int lvl, int planes, int n,
 
 
 // ---------------------------------------------------------------------------
-// Hopper core of the redesigned CMux kernels (cmux_step.cu, ladder_steps.cu)
+// Hopper core of the redesigned CMux kernels (cmux_step.cu, ladder_tiles.cu,
+// ladder_steps.cu)
 // ---------------------------------------------------------------------------
 //
 // The contraction of a tile of kTileM = 128 batch rows against 64 * P
@@ -775,7 +683,7 @@ static __device__ __forceinline__ void epilogue_store(
 }
 
 // Balanced gadget digits of X^rot * acc - acc for the batch rows
-// [0, batch), written row-major to the global buffer the A tiles come from:
+// [row0, row1), written row-major to the global buffer the A tiles come from:
 // dig[row * K + (l * kp1 + j) * n + c], K = lvl * kp1 * n.  An item is four
 // consecutive coefficients (one 16-byte load of acc, one 4-byte store per
 // level); threads tid, tid + nthr, ... share them, U items at a time with
@@ -803,10 +711,10 @@ static __device__ __forceinline__ void digit_advance(DigitCursor& at,
 
 template <int U>
 static __device__ __forceinline__ void digit_rows(
-    const uint32_t* acc, const int32_t* rot, int8_t* dig, int batch, int kp1,
-    int lvl, int n, int base_log, unsigned tid, unsigned nthr) {
+    const uint32_t* acc, const int32_t* rot, int8_t* dig, int row0, int row1,
+    int kp1, int lvl, int n, int base_log, unsigned tid, unsigned nthr) {
   const unsigned two_n = 2 * n;
-  const unsigned rows = static_cast<unsigned>(batch);
+  const unsigned rows = static_cast<unsigned>(row1);
   const unsigned row_words = kp1 * n;          // uint32 words of a row
   const unsigned kdim = lvl * row_words;       // digit bytes of a row
   const int total = lvl * base_log;
@@ -816,7 +724,7 @@ static __device__ __forceinline__ void digit_rows(
   const uint32_t half = 1u << (base_log - 1);
   const unsigned quads = row_words / 4;
   const unsigned step_rows = nthr / quads, step_k = 4 * (nthr % quads);
-  DigitCursor at{tid / quads, 4 * (tid % quads)};
+  DigitCursor at{row0 + tid / quads, 4 * (tid % quads)};
   DigitCursor ahead = at;
   unsigned r_next[U];
 #pragma unroll
@@ -890,7 +798,8 @@ static __device__ __forceinline__ void digit_rows(
   }
 }
 
-// On-chip Toeplitz expansion of one B tile (cmux_step.cu): the 64P rows of
+// On-chip Toeplitz expansion of one B tile (cmux_step.cu, ladder_tiles.cu):
+// the 64P rows of
 // a column tile (coefficients 64 gq + 8q + w, plane p, row (qP + p) * 8 + w)
 // over the 128 K bytes of stage kc, from the tables of one output
 // component jp in shared memory.  Table (l, j, p) holds
@@ -975,15 +884,29 @@ static __device__ __forceinline__ void consumers_grid_barrier(
   asm volatile("bar.sync 1, %0;" ::"n"(2 * kWgThreads) : "memory");
 }
 
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives (with release semantics: its writes, global ones included, are
+// visible in the cluster once the barrier completes) and later waits (with
+// acquire semantics).  A thread alternates the two.
+static __device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+
+static __device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
 // Arguments of a Hopper CMux launch (one kernel parameter).
 struct HopperArgs {
   const uint32_t* acc;     // (B, k+1, N) input accumulator
   const int32_t* rots;     // (n_steps, B)
-  const int8_t* g;         // one key row (lvl, k+1, k+1, P, 2N), kExpand
+  const int8_t* g;         // key rows (n_steps, lvl, k+1, k+1, P, 2N), kExpand
+  size_t g_step;           // bytes from one step's key row to the next
   uint32_t* out;           // (B, k+1, N), distinct from acc
   int8_t* dig;             // (ceil(B / 128) * 128, lvl * (k+1) * N)
-  unsigned* counter;       // zeroed grid-barrier counter
+  unsigned* counter;       // zeroed grid-barrier counter (grid mode)
   int batch, kp1, lvl, n, base_log, drop, n_steps, stages;
+  int cluster;             // blocks per cluster (cluster mode)
 };
 
 static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
@@ -993,21 +916,35 @@ static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
   return static_cast<size_t>(lvl) * kp1 * planes * (2 * n + 2 * kWrap);
 }
 
-// The body of both redesigned kernels, one persistent cooperative grid:
-// for every step s, (1) all warps of all blocks write the digits of every
-// row to h.dig, and each block arrives at a grid barrier; (2) each block
-// walks a contiguous range of the tiles (128 rows x 64P columns, column
+// The body of the redesigned kernels.  A *domain* of blocks owns a run of
+// 128-row tiles for every step: the whole grid, a persistent cooperative
+// launch that meets at a hand-written grid barrier (kCluster = false:
+// cmux_step.cu, ladder_steps.cu), or one thread-block cluster that meets
+// only its own blocks at barrier.cluster (kCluster = true: ladder_tiles.cu,
+// the row tiles split evenly over the clusters).  For every step s, (1) all
+// warps of the domain's blocks write the digits of the domain's rows to
+// h.dig and arrive at the domain's barrier; (2) each block walks a
+// contiguous range of the domain's tiles (128 rows x 64P columns, column
 // tile ct = jp * N/64 + coefficient block, row tile fastest): the producer
 // warpgroup fills the ring -- the A tile by TMA once the barrier is
 // complete, the B tile by TMA from the K-major slabs (kExpand = false,
-// ladder_steps.cu) or expanded on chip from the tables of the one key row
-// h.g (kExpand = true, cmux_step.cu, a single step) -- and the two
-// consumer warpgroups run wgmma and the CMux add; (3) a second grid
-// barrier before the next step reads the accumulator.  Step 0 reads h.acc,
-// later steps update h.out in place.  The roles stay on separate paths
-// for the whole kernel, as setmaxnreg needs; they meet only at mbarriers,
-// named barriers and the counter.
-template <int P, bool kExpand>
+// ladder_steps.cu) or expanded on chip from the tables of step s's key row
+// h.g + s * h.g_step (kExpand = true: cmux_step.cu, one step;
+// ladder_tiles.cu, every step) -- and the two consumer warpgroups run wgmma
+// and the CMux add; (3) a second barrier of the domain before the next
+// step reads the accumulator.  Step 0 reads h.acc, later steps update h.out
+// in place.  The roles stay on separate paths for the whole kernel, as
+// setmaxnreg needs; they meet only at mbarriers, named barriers and the
+// domain's barrier.
+//
+// The tables of the expansion are keyed on (step, jp).  With one buffer
+// (kTabBufs = 1) the producer reloads them when the key changes and issues
+// the next step's first ones as soon as the step's last expansion is done.
+// With two (kTabBufs = 2: an option of ladder_tiles.cu that the ablation
+// script times) it issues the next key's copies into the free buffer as
+// soon as it switches to a key, so that a reload never waits on them; the
+// second buffer costs a stage of the ring.
+template <int P, bool kExpand, bool kCluster = false, int kTabBufs = 1>
 static __device__ __forceinline__ void cmux_hopper_body(
     unsigned char* smem_raw, const CUtensorMap* map_a,
     const CUtensorMap* map_b, const HopperArgs& h) {
@@ -1018,25 +955,39 @@ static __device__ __forceinline__ void cmux_hopper_body(
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* tab = ring + h.stages * sb;
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      tab + (kExpand ? (table_bytes(h.lvl, kp1, P, n) + 15) & ~size_t(15)
-                     : 0));
+  const size_t tab_stride =
+      kExpand ? (table_bytes(h.lvl, kp1, P, n) + 15) & ~size_t(15) : 0;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tab + kTabBufs * tab_stride);
   uint64_t* empty = full + kMaxStages;
-  uint64_t* tab_bar = empty + kMaxStages;
+  uint64_t* tab_bar = empty + kMaxStages;      // one per table buffer
   const int nk = h.lvl * kp1 * n / kChunk;
   const int row_tiles = (h.batch + kTileM - 1) / kTileM;
-  const int tiles = row_tiles * kp1 * (n / 64);
   const unsigned nb = gridDim.x;
-  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles /
-                                  nb);
+  // This block's domain: its row tiles [rt0, rt1), rows [row0, row1) and
+  // tiles [t0, t1) of the domain's (rt1 - rt0) x (k+1) N/64; its threads'
+  // share of the digits.  The grid is one domain.
+  const int dom_blocks = kCluster ? h.cluster : static_cast<int>(nb);
+  const int dom = kCluster ? blockIdx.x / h.cluster : 0;
+  const int rank = kCluster ? blockIdx.x - dom * h.cluster : blockIdx.x;
+  const int doms = kCluster ? static_cast<int>(nb) / h.cluster : 1;
+  const int rt0 = kCluster ? dom * row_tiles / doms : 0;
+  const int rt1 = kCluster ? (dom + 1) * row_tiles / doms : row_tiles;
+  const int nrt = rt1 - rt0;
+  const int row0 = rt0 * kTileM;
+  const int row1 = kCluster ? min(h.batch, rt1 * kTileM) : h.batch;
+  const int tiles = nrt * kp1 * (n / 64);
+  const int t0 = static_cast<int>(static_cast<long long>(rank) * tiles /
+                                  dom_blocks);
   const int t1 = static_cast<int>(
-      static_cast<long long>(blockIdx.x + 1) * tiles / nb);
+      static_cast<long long>(rank + 1) * tiles / dom_blocks);
+  const unsigned dtid = rank * kHopperThreads + threadIdx.x;
+  const unsigned dthreads = dom_blocks * kHopperThreads;
   if (threadIdx.x == 0) {
     for (int i = 0; i < h.stages; ++i) {
       mbar_init(&full[i], kExpand ? kWgThreads : 1);
       mbar_init(&empty[i], kConsumerWarps);
     }
-    mbar_init(tab_bar, 1);
+    for (int b = 0; b < kTabBufs; ++b) mbar_init(&tab_bar[b], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -1058,69 +1009,128 @@ static __device__ __forceinline__ void cmux_hopper_body(
     const int ntab = h.lvl * kp1 * P;
     const int two_n = 2 * n;
     int stage = 0;
-    uint32_t phase = 0, tab_phase = 0;
-    int cur_jp = -1;
+    uint32_t phase = 0;
+    uint32_t tab_phase = 0;          // bit b: the parity of tab_bar[b]
+    int cur_s = -1, cur_jp = -1;     // the key of the tables in use
+    int buf = kTabBufs - 1;          // their buffer
     bool tables_pending = false;
-    // Issue the bulk copies of the tables of output component jp once
-    // every producer thread is done reading the previous ones.
-    auto load_tables = [&](int jp) {
-      if (cur_jp >= 0)
-        asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
+    // Issue the bulk copies of the tables of step s's key row for output
+    // component jp into buffer b, whose readers are done with it: one copy
+    // a table, without its wraps (a 16-byte copy costs the producer about
+    // what a 2N-byte one does).
+    auto issue_tables = [&](int b, int s, int jp) {
       if (pt == 0) {
         fence_async_shared();
-        mbar_expect_tx(tab_bar, static_cast<uint32_t>(ntab) * hs);
+        mbar_expect_tx(&tab_bar[b], static_cast<uint32_t>(ntab) * two_n);
+        const int8_t* key = h.g + s * h.g_step;
         for (int i = 0; i < ntab; ++i) {
           const int lj = i / P, p = i - lj * P;
           const int8_t* src =
-              h.g + (static_cast<size_t>(lj * kp1 + jp) * P + p) * two_n;
-          uint8_t* dst = tab + static_cast<size_t>(i) * hs;
-          bulk_load(dst, src + two_n - kWrap, kWrap, tab_bar);
-          bulk_load(dst + kWrap, src, two_n, tab_bar);
-          bulk_load(dst + kWrap + two_n, src, kWrap, tab_bar);
+              key + (static_cast<size_t>(lj * kp1 + jp) * P + p) * two_n;
+          uint8_t* dst = tab + b * tab_stride + static_cast<size_t>(i) * hs;
+          bulk_load(dst + kWrap, src, two_n, &tab_bar[b]);
         }
       }
+    };
+    // Once buffer b's copies have landed: every producer thread fills its
+    // share of the wraps from the tables themselves (head = the last 16
+    // bytes, tail = the first 16), then they meet, which also tells that
+    // every thread is past the tables it read before.
+    auto fill_wraps = [&](int b) {
+      uint8_t* tb = tab + b * tab_stride;
+      for (int i = pt; i < 2 * ntab; i += kWgThreads) {
+        uint8_t* t = tb + static_cast<size_t>(i < ntab ? i : i - ntab) * hs;
+        if (i < ntab)
+          *reinterpret_cast<uint4*>(t) =
+              *reinterpret_cast<const uint4*>(t + two_n);
+        else
+          *reinterpret_cast<uint4*>(t + kWrap + two_n) =
+              *reinterpret_cast<const uint4*>(t + kWrap);
+      }
+      asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
+    };
+    // One buffer: reload it once every producer thread is done reading it.
+    auto load_tables = [&](int s, int jp) {
+      if (cur_jp >= 0)
+        asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
+      issue_tables(0, s, jp);
+      cur_s = s;
       cur_jp = jp;
       tables_pending = true;
     };
+    const int first_jp = nrt ? t0 / nrt / (n / 64) : 0;
     // The first tables' copies overlap the digit phase.
-    if (kExpand && t0 < t1) load_tables(t0 / row_tiles / (n / 64));
+    if (kExpand && t0 < t1) {
+      if (kTabBufs == 1)
+        load_tables(0, first_jp);
+      else
+        issue_tables(0, 0, first_jp);
+    }
     for (int s = 0; s < h.n_steps; ++s) {
       // This warpgroup's share of the digit phase, once the previous
-      // step's accumulator is complete everywhere.
-      if (s > 0) wait_counter(h.counter, 2u * s * nb);
+      // step's accumulator is complete in the domain.
+      if (s > 0) {
+        if (kCluster)
+          cluster_wait();
+        else
+          wait_counter(h.counter, 2u * s * nb);
+      }
       digit_rows<4>(s ? h.out : h.acc,
-                    h.rots + static_cast<size_t>(s) * h.batch, h.dig,
-                    h.batch, kp1, h.lvl, n, h.base_log,
-                    blockIdx.x * kHopperThreads + threadIdx.x,
-                    nb * kHopperThreads);
+                    h.rots + static_cast<size_t>(s) * h.batch, h.dig, row0,
+                    row1, kp1, h.lvl, n, h.base_log, dtid, dthreads);
       fence_async_global();
-      asm volatile("bar.arrive 3, %0;" ::"n"(kHopperThreads) : "memory");
+      if (kCluster)
+        cluster_arrive();
+      else
+        asm volatile("bar.arrive 3, %0;" ::"n"(kHopperThreads) : "memory");
       bool a_ready = false;
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / row_tiles;
-        const int rt = t - ct * row_tiles;
+        const int ct = t / nrt;
+        const int rt = rt0 + (t - ct * nrt);
         const int jp = ct / (n / 64);
         const int gq = ct - jp * (n / 64);
-        if (kExpand && jp != cur_jp) load_tables(jp);
+        if (kExpand && kTabBufs == 2 && (jp != cur_jp || s != cur_s)) {
+          // Switch to the buffer the key was issued into, then issue the
+          // next key -- a later output component of this step, else the
+          // next step's first -- into the one every thread has left.
+          buf ^= 1;
+          cur_s = s;
+          cur_jp = jp;
+          mbar_wait(&tab_bar[buf], (tab_phase >> buf) & 1u);
+          tab_phase ^= 1u << buf;
+          fill_wraps(buf);
+          if ((jp + 1) * (n / 64) * nrt < t1)
+            issue_tables(buf ^ 1, s, jp + 1);
+          else if (s + 1 < h.n_steps)
+            issue_tables(buf ^ 1, s + 1, first_jp);
+        }
+        if (kExpand && kTabBufs == 1 && (jp != cur_jp || s != cur_s))
+          load_tables(s, jp);
         if (kExpand && tables_pending) {
-          mbar_wait(tab_bar, tab_phase);
+          mbar_wait(&tab_bar[0], tab_phase);
           tab_phase ^= 1u;
           tables_pending = false;
+          fill_wraps(0);
         }
         for (int kc = 0; kc < nk; ++kc) {
           if (!kExpand && pt != 0) break;
           mbar_wait(&empty[stage], phase ^ 1u);
           uint8_t* st = ring + stage * sb;
           if (kExpand) {
-            expand_b_tile<P>(st + kATileBytes, tab, hs, n, kc, gq, pt);
+            expand_b_tile<P>(st + kATileBytes, tab + buf * tab_stride, hs,
+                             n, kc, gq, pt);
             fence_async_shared();
           }
-          if (pt == 0) {
-            if (!a_ready) {
+          if (!a_ready) {
+            // The domain's digits of step s are written.
+            if (kCluster)
+              cluster_wait();
+            else if (pt == 0)
               wait_counter(h.counter, (2u * s + 1u) * nb);
-              fence_async_global();
-              a_ready = true;
-            }
+            if (pt == 0) fence_async_global();
+            a_ready = true;
+          }
+          if (pt == 0) {
             if (kExpand) {
               mbar_expect_tx_only(&full[stage], kATileBytes);
             } else {
@@ -1137,6 +1147,14 @@ static __device__ __forceinline__ void cmux_hopper_body(
           }
         }
       }
+      if (kCluster && !a_ready) cluster_wait();
+      if (s + 1 < h.n_steps) {
+        // The next step's first tables, as soon as this step's expansions
+        // are done; they do not depend on the accumulator.
+        if (kExpand && kTabBufs == 1 && t0 < t1)
+          load_tables(s + 1, first_jp);
+        if (kCluster) cluster_arrive();      // nothing of acc to store
+      }
     }
   } else {
     // Two consumer warpgroups.
@@ -1146,22 +1164,25 @@ static __device__ __forceinline__ void cmux_hopper_body(
     int stage = 0;
     uint32_t phase = 0;
     for (int s = 0; s < h.n_steps; ++s) {
+      if (kCluster && s > 0) cluster_wait();
       const uint32_t* src = s ? h.out : h.acc;
       digit_rows<8>(src, h.rots + static_cast<size_t>(s) * h.batch, h.dig,
-                    h.batch, kp1, h.lvl, n, h.base_log,
-                    blockIdx.x * kHopperThreads + threadIdx.x,
-                    nb * kHopperThreads);
+                    row0, row1, kp1, h.lvl, n, h.base_log, dtid, dthreads);
       fence_async_global();
       // The block's digits, the producer's share included, are written:
-      // arrive at the grid barrier.
-      asm volatile("bar.sync 3, %0;" ::"n"(kHopperThreads) : "memory");
-      if (threadIdx.x == 0) {
-        __threadfence();
-        atomicAdd(h.counter, 1u);
+      // arrive at the domain's barrier.
+      if (kCluster) {
+        cluster_arrive();
+      } else {
+        asm volatile("bar.sync 3, %0;" ::"n"(kHopperThreads) : "memory");
+        if (threadIdx.x == 0) {
+          __threadfence();
+          atomicAdd(h.counter, 1u);
+        }
       }
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / row_tiles;
-        const int rt = t - ct * row_tiles;
+        const int ct = t / nrt;
+        const int rt = rt0 + (t - ct * nrt);
         const int jp = ct / (n / 64);
         const TileRows rows = tile_rows(rt * kTileM + wg * 64, h.batch, kp1,
                                         n, jp, (ct - jp * (n / 64)) * 64);
@@ -1171,8 +1192,12 @@ static __device__ __forceinline__ void cmux_hopper_body(
         consume_tile<P>(d, ring, full, empty, h.stages, nk, stage, phase);
         epilogue_store<P>(d, prev, h.out, rows, h.drop);
       }
-      if (s + 1 < h.n_steps)
+      if (kCluster) {
+        cluster_wait();              // the digit barrier, long complete
+        if (s + 1 < h.n_steps) cluster_arrive();   // this step's stores
+      } else if (s + 1 < h.n_steps) {
         consumers_grid_barrier(h.counter, (2u * s + 2u) * nb);
+      }
     }
   }
 }
@@ -1182,7 +1207,7 @@ static __device__ __forceinline__ void cmux_hopper_body(
 static __host__ __device__ __forceinline__ size_t hopper_smem_bytes(
     int planes, int stages, size_t extra) {
   return 1024 + static_cast<size_t>(stages) * stage_bytes(planes) +
-         ((extra + 15) & ~size_t(15)) + (2 * kMaxStages + 1) * 8;
+         ((extra + 15) & ~size_t(15)) + (2 * kMaxStages + 2) * 8;
 }
 
 // Host side: a 2-D uint8 tensor map over a row-major (rows, cols) buffer,
@@ -1248,10 +1273,11 @@ static inline cudaError_t pick_stages(int planes, size_t extra, int* stages,
   return cudaErrorInvalidValue;
 }
 
-// Launch `fn`, a kernel that runs cmux_hopper_body with `extra` bytes of
-// shared memory beside the ring, as a persistent cooperative grid: every
-// block must be resident for the grid barriers, so the grid is the smaller
-// of the tile count and what the device holds at once.
+// Launch `fn`, a kernel that runs cmux_hopper_body in grid mode with
+// `extra` bytes of shared memory beside the ring, as a persistent
+// cooperative grid: every block must be resident for the grid barriers, so
+// the grid is the smaller of the tile count and what the device holds at
+// once.  (ladder_tiles.cu launches its clusters itself.)
 static inline cudaError_t launch_hopper(const void* fn, int planes,
                                         size_t extra,
                                         const CUtensorMap& map_a,

@@ -99,10 +99,10 @@ extern "C" int nfa_ladder_steps(const void* acc, const void* rots,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   HopperArgs h{static_cast<const uint32_t*>(acc),
-               static_cast<const int32_t*>(rots), nullptr,
+               static_cast<const int32_t*>(rots), nullptr, 0,
                static_cast<uint32_t*>(out), static_cast<int8_t*>(dig),
                static_cast<unsigned*>(counter), batch, kp1, lvl, n,
-               base_log, drop, n_steps, 0};
+               base_log, drop, n_steps, 0, 0};
   const void* kernels[] = {
       reinterpret_cast<const void*>(ladder_steps_kernel<1>),
       reinterpret_cast<const void*>(ladder_steps_kernel<2>),

@@ -6,31 +6,65 @@
 // Replaces: node_fhe_accelerate_tpu/ops/pallas_cmux.py
 // `_fused_rotate_kernel` (entry `blind_rotate_fused`, the "pallas_fused"
 // backend), whose grid is (batch tile, step, column chunk) with the
-// accumulator in VMEM scratch per tile.
+// accumulator in VMEM scratch per tile: batch rows never interact, so a
+// tile of rows runs its whole ladder without waiting for any other tile.
 //
-// A block owns `bt` batch rows for the whole ladder; batch rows never
-// interact, so blocks need no ordering among themselves.  The TPU body
-// streams prepared diagonal slabs (made inside its jit, 6.2 GB at
-// TFHE_BOOT_128_K4); this kernel does not need them: per step it rebuilds
-// the reversed tables of cmux_step.cu in shared memory from the key row as
-// stored (102 KB at K4, shared by all blocks through L2) and runs the same
-// contraction.
-//
-// Where the accumulator tile lives: in device memory, in the output buffer,
-// updated in place.  A uint32 tile in shared memory beside the tables and
-// the digits fits at K4 only for bt = 16 (108,800 + 16 x 2,576 + 16 x 5,120
-// = 231,936 of 232,448 bytes) and not at all at k=1, N=1024
-// (66,560 + 16 x 4,112 + 16 x 8,192 bytes = 263 KB).  In device memory the
-// tile keeps bt at the value cmux_step.cu uses, the whole batch's
-// accumulator (21 MB at K4, batch 4096) stays in the 50 MB L2 between
-// steps, and it still makes one trip from and to HBM per ladder.  In-place
-// is safe: only this block touches its rows, the digit phase (which reads
-// rotated positions) is separated from the MMA phase by __syncthreads(),
-// and an MMA task reads and writes only its own elements.
+// Weights: the bootstrap key's int8 rows as stored, (n_steps, lvl, k+1,
+// k+1, P, 2N), 64.5 MB at TFHE_BOOT_128_K4.  No per-key form is needed (the
+// steps-outer ladder_steps.cu reads 8.26 GB of K-major slabs).
 //
 // Bound at K4, batch 4096, 630 steps: 630 x 5.37e10 int8 MACs = 34.2 ms at
-// 1,979 TOPS; acc in and out, the rotations and the 64.5 MB of key rows are
-// 117 MB, 35 us at 3.35 TB/s: bound by operations.
+// 1,979 TOPS; acc in and out, the rotations and the key rows are 117 MB,
+// 35 us at 3.35 TB/s: bound by operations.  Per stage of 128 K bytes a
+// block's tensor cores need ~1,024 clocks and its shared memory moves
+// ~950 clocks' worth (the on-chip expansion of B beside the wgmma reads,
+// as in cmux_step.cu), so tensor cores and shared memory bound it
+// together; the digit phase, the epilogue and the barriers of each step
+// come on top.
+//
+// Design (cmux_common.cuh cmux_hopper_body<P, true, true>: K1's core with a
+// step loop).  The TPU's "batch tile outer" becomes a thread-block cluster
+// that owns a run of 128-row tiles for every step and meets only its own
+// blocks, at barrier.cluster:
+//
+// * per step, the cluster's warps write the digits of its rows to a global
+//   row-major buffer (it stays in L2) and arrive at the cluster barrier;
+//   each block's producer expands its first B tile, then waits there
+//   before its first TMA load of A;
+// * the cluster's blocks split its tiles of 128 rows x 64P columns (20 per
+//   row tile at K4, 32 at k=1, N=1024) in contiguous ranges, row tile
+//   fastest, so a block expands B from the tables of two or three output
+//   components jp a step.  The tables are keyed on (step, jp): the
+//   producer reloads them (21.8 KB at K4 from the step's key row, which
+//   every block reads through L2: one bulk copy a table, its 16-byte wraps
+//   then filled within shared memory, as 80 more copies of 16 bytes cost
+//   as much as the rest) when either changes, and issues the next step's
+//   first ones as soon as its last expansion of the step is done;
+// * a second cluster barrier closes the step: the next step's digits read
+//   accumulator rows that other blocks of the cluster wrote.
+//
+// There is no grid-wide barrier and no cooperative launch: the launch is
+// cudaLaunchKernelEx with a cluster dimension, and clusters never wait for
+// each other, so they need not all be resident.  ops/ladder.py
+// `plan_clusters` picks the cluster size c <= 8 and the number of clusters
+// m from the row tiles R, the column tiles C of a row tile and the
+// clusters of each size the card holds at once
+// (nfa_ladder_tiles_occupancy): the c whose busiest block has the fewest
+// tiles a step, ceil(ceil(R / m) C / c) with m = min(R, resident
+// clusters), the smaller c on a tie.  At K4, batch 4096 (R = 32, C = 20)
+// that is 32 clusters of 4: 128 blocks of 5 tiles each.  A batch of 256,
+// 77 or 40 rows (R <= 2) gets clusters of 7 or 8, so it still spreads over
+// 7-16 SMs where a block per row tile would use 1-2; a batch of more row
+// tiles than resident clusters gives each cluster a longer run.
+//
+// Shared memory at K4: 4 stages of 48 KB and one set of tables (21.8 KB),
+// 219 KB of the 227 KB.  A second set, so that a reload never waits on its
+// copies, leaves room for 3 stages only, and the lost stage costs more
+// than the reloads (scripts/ablate_cmux_kernels.py, PERF.md).
+//
+// Exactness as cmux_step.cu.  The wrapper keeps B (k+1) N lvl below 2^31
+// bytes per launch (ops/cmux.py batch_chunks): the digit offsets are
+// 32-bit.
 
 #include "cmux_common.cuh"
 
@@ -38,63 +72,113 @@ namespace {
 
 using namespace nfa;
 
-__global__ void __launch_bounds__(kThreads)
-ladder_tiles_kernel(const uint32_t* __restrict__ acc,
-                    const int32_t* __restrict__ rots,
-                    const int8_t* __restrict__ g, uint32_t* out, int batch,
-                    int kp1, int lvl, int planes, int n, int base_log,
-                    int n_steps, int bt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rs = static_cast<int>(digit_row_bytes(lvl, kp1, n));
-  int8_t* dig = reinterpret_cast<int8_t*>(smem);   // [bt][rs]
-  int8_t* tab = dig + bt * rs;                     // [lvl][k+1][k+1][P][hs]
-  const int b0 = blockIdx.x * bt;
-  const int ntab = lvl * kp1 * kp1 * planes;
-  const size_t row_bytes = static_cast<size_t>(ntab) * 2 * n;
-  const int rows = min(bt, batch - b0);
-  const size_t base = static_cast<size_t>(b0) * kp1 * n;
-  for (int i = threadIdx.x; i < rows * kp1 * n; i += kThreads)
-    out[base + i] = acc[base + i];
-  __syncthreads();
-  for (int s = 0; s < n_steps; ++s) {
-    build_tables(g + s * row_bytes, tab, ntab, n);
-    digit_phase(out, rots + static_cast<size_t>(s) * batch, dig, rs, b0, bt,
-                batch, kp1, lvl, n, base_log);
-    __syncthreads();
-    toeplitz_mma_phase(dig, rs, tab, out, out, b0, bt, batch, kp1, lvl,
-                       planes, n);
-    __syncthreads();
-  }
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kTabBufs = 1;      // table buffers (2 costs a ring stage)
+
+template <int P>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+ladder_tiles_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const HopperArgs h) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cmux_hopper_body<P, true, true, kTabBufs>(smem_raw, &map_a, &map_a, h);
+}
+
+// The kernel for `planes`, with its ring picked and its shared memory
+// opted into.
+cudaError_t prepare(int kp1, int lvl, int planes, int n, const void** fn,
+                    int* stages, size_t* smem) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(ladder_tiles_kernel<1>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<2>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<3>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<4>)};
+  *fn = kernels[planes - 1];
+  const size_t tables =
+      kTabBufs * ((table_bytes(lvl, kp1, planes, n) + 15) & ~size_t(15));
+  cudaError_t err = pick_stages(planes, tables, stages, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(*fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+// A launch of `clusters` clusters of `cluster` blocks.
+cudaLaunchConfig_t cluster_config(int cluster, int clusters, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters);
+  cfg.blockDim = dim3(kHopperThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// Launch the ladder on `stream`.  acc/out: uint32 bits (B, k+1, N), distinct
-// buffers; rots: int32 (n_steps, B); g: int8 (n_steps, lvl, k+1, k+1, P, 2N).
-// The caller has checked shapes and the int32 bound.  Returns a cudaError_t.
-extern "C" int nfa_ladder_tiles(const void* acc, const void* rots,
-                                const void* g, void* out, int batch, int kp1,
-                                int lvl, int planes, int n, int base_log,
-                                int n_steps, void* stream) {
-  if (!shape_ok(batch, kp1, lvl, planes, n, base_log) || n_steps < 0)
+// The ring of stages the kernel runs with at this shape, and active[c - 1]:
+// how many clusters of c blocks the current device holds at once, for
+// c = 1 .. 8.  Returns a cudaError_t.
+extern "C" int nfa_ladder_tiles_occupancy(int kp1, int lvl, int planes,
+                                          int n, int* stages, int* active) {
+  if (!hopper_shape_ok(1, kp1, lvl, planes, n, 1, 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t table = static_cast<size_t>(lvl) * kp1 * kp1 * planes *
-                       (2 * n + kTablePad);
-  static const int cands[] = {64, 32, 16, 0};
-  int bt = 0;
+  const void* fn = nullptr;
   size_t smem = 0;
-  cudaError_t err = pick_batch_tile(table, digit_row_bytes(lvl, kp1, n),
-                                    cands, &bt, &smem);
+  cudaError_t err = prepare(kp1, lvl, planes, n, &fn, stages, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ladder_tiles_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  for (int c = 1; c <= kMaxCluster; ++c) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(c, 1, smem, nullptr,
+                                                  &attr);
+    err = cudaOccupancyMaxActiveClusters(&active[c - 1], fn, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// Launch the ladder on `stream` as `clusters` clusters of `cluster` blocks.
+// acc/out: uint32 bits (B, k+1, N), distinct buffers; rots: int32
+// (n_steps, B); g: int8 (n_steps, lvl, k+1, k+1, P, 2N), 16-byte aligned;
+// dig: int8 scratch of (ceil(B/128)*128, lvl*(k+1)*N).  The caller has
+// checked shapes and the int32 bound.  Returns a cudaError_t.
+extern "C" int nfa_ladder_tiles(const void* acc, const void* rots,
+                                const void* g, void* out, void* dig,
+                                int batch, int kp1, int lvl, int planes,
+                                int n, int base_log, int n_steps,
+                                int cluster, int clusters, void* stream) {
+  if (!hopper_shape_ok(batch, kp1, lvl, planes, n, base_log, 0) ||
+      n_steps < 0 || reinterpret_cast<uintptr_t>(g) % 16 || cluster < 1 ||
+      cluster > kMaxCluster || clusters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long kdim =
+      static_cast<unsigned long long>(lvl) * kp1 * n;
+  const unsigned long long rows = (batch + kTileM - 1) / kTileM * kTileM;
+  alignas(64) CUtensorMap map_a;
+  cudaError_t err = make_tile_map(&map_a, dig, rows, kdim, kTileM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (batch + bt - 1) / bt;
-  ladder_tiles_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(acc), static_cast<const int32_t*>(rots),
-      static_cast<const int8_t*>(g), static_cast<uint32_t*>(out), batch, kp1,
-      lvl, planes, n, base_log, n_steps, bt);
+  HopperArgs h{static_cast<const uint32_t*>(acc),
+               static_cast<const int32_t*>(rots),
+               static_cast<const int8_t*>(g),
+               static_cast<size_t>(kdim) * kp1 * planes * 2,
+               static_cast<uint32_t*>(out), static_cast<int8_t*>(dig),
+               nullptr, batch, kp1, lvl, n, base_log, 0, n_steps, 0,
+               cluster};
+  const void* fn = nullptr;
+  size_t smem = 0;
+  err = prepare(kp1, lvl, planes, n, &fn, &h.stages, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cluster, clusters, smem, static_cast<cudaStream_t>(stream), &attr);
+  void* args[] = {&map_a, &h};
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

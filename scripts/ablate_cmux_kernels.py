@@ -4,21 +4,30 @@
     python3 scripts/ablate_cmux_kernels.py [--steps 20] [--seed 3]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-nvcc.  No profiler that reads inside a kernel runs there, so this builds,
-beside the real kernels, copies of ``csrc/cmux_step.cu`` (K1) and
-``csrc/ladder_steps.cu`` (K5) with one part of the shared body
-(``csrc/cmux_common.cuh``) switched off -- the digit phase of the consumer
-warps or of all warps, the CMux epilogue, the wgmma instructions, K5's TMA
-loads of the B tiles, or K1's on-chip Toeplitz expansion -- and times each
-at TFHE_BOOT_128_K4, batch 4096, by CUDA events, in turns.  The ablated kernels compute wrong results; only their
+nvcc. No profiler that reads inside a kernel runs there, so this builds,
+beside the real kernels, copies of ``csrc/cmux_step.cu`` (K1),
+``csrc/ladder_tiles.cu`` (K4) and ``csrc/ladder_steps.cu`` (K5) with one
+part of the shared body (``csrc/cmux_common.cuh``) switched off or changed,
+and times each at TFHE_BOOT_128_K4, batch 4096, by CUDA events, in turns.
+Parts switched off: the digit phase of the consumer warps or of all warps,
+or its loads of the rotated accumulator; the CMux epilogue, or only its
+loads of the accumulator, or only its stores; the wgmma instructions; K5's
+TMA loads of the B tiles; the on-chip Toeplitz expansion of K1 and K4; K4's
+TMA loads of the A tiles (what a multicast of A across a cluster could save
+at most), its table reloads at each step and output component, the fill of
+the tables' wraps, or its cluster barriers. Changed: K4 with two table
+buffers and 3 stages in place of one and 4, with other register splits, or
+in the body's grid mode (one persistent grid that meets at K1's and K5's
+counter barrier). The ablated kernels compute wrong results; only their
 times mean anything: base minus ablated is what the part costs where it is
-not hidden behind the others.  The copies go to build/ablation/ (ignored
-by git).  Prints the card's name and power limit, then one JSON object
-per kernel: milliseconds per step, two rounds each.
+not hidden behind the others. The copies go to build/ablation/ (ignored by
+git). Prints the card's name and power limit, then one JSON object per
+kernel: milliseconds per step, two rounds each.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -31,9 +40,35 @@ OUT = os.path.join(ROOT, "build", "ablation")
 
 MMA = "WgmmaS8<64 * P>::mma(d, da + 2 * kk, db + 2 * kk, kc | kk);"
 EPI = "epilogue_store<P>(d, prev"
+# false at run time, not at compile time: with `if (0)` ptxas drops the
+# wgmma whose accumulators nothing reads any more
+EPI_OFF = "if (h.batch < 0) "
+EPI_LOAD = "epilogue_load(prev, src, rows);"
+EPI_STORE = "*reinterpret_cast<uint2*>(dst + r.o[half] + 8 * q) ="
 DIG = "      digit_rows<8>(src, h.rots"
 DIG_PRODUCER = "      digit_rows<4>(s ? h.out : h.acc,"
+ROT_LO = "const uint4 lo = *reinterpret_cast<const uint4*>(a + (p0 & ~3u));"
+ROT_HI = """const uint4 hi =
+            *reinterpret_cast<const uint4*>(a + ((p0 + 4u) & (n - 4u)));"""
+ARRIVE = 'asm volatile("barrier.cluster.arrive;" ::: "memory");'
+WAIT = 'asm volatile("barrier.cluster.wait;" ::: "memory");'
+# K4 in the body's grid mode: one persistent grid of single-block clusters
+# that meets at the counter barrier of K1 and K5 (a counter argument added)
+GRID = "K4 with a grid barrier in place of the cluster barriers"
+BODY = "cmux_hopper_body<P, true, true, kTabBufs>(smem_raw"
+TABS = "constexpr int kTabBufs = 1;"
+WRAPS = "for (int i = pt; i < 2 * ntab; i += kWgThreads) {"
 EXP = "expand_b_tile<P>(st + kATileBytes"
+A_TX = "mbar_expect_tx_only(&full[stage], kATileBytes);"
+# setmaxnreg of the consumers and of the producer when it expands B (the sum
+# stays 168 x 384)
+REG_C = '"n"(kExpand ? 208'
+REG_P = '"n"(kExpand ? 88'
+A_LOAD = "tma_load(st, map_a, &full[stage], kc * kChunk, rt * kTileM);"
+RELOAD = """if (kExpand && kTabBufs == 1 && (jp != cur_jp || s != cur_s))
+          load_tables(s, jp);"""
+PREFETCH = """if (kExpand && kTabBufs == 1 && t0 < t1)
+          load_tables(s + 1, first_jp);"""
 B_LOAD = """mbar_expect_tx(&full[stage], sb);
               tma_load(st + kATileBytes, map_b, &full[stage], kc * kChunk,
                        s * kp1 * P * n + ct * 64 * P);"""
@@ -49,7 +84,7 @@ ABLATIONS = {
     "K5 without the B loads": (
         "ladder_steps.cu", {B_LOAD: "mbar_expect_tx(&full[stage], "
                                     "kATileBytes);"}),
-    "K5 without the epilogue": ("ladder_steps.cu", {EPI: "if (0) " + EPI}),
+    "K5 without the epilogue": ("ladder_steps.cu", {EPI: EPI_OFF + EPI}),
     "K5 without wgmma": ("ladder_steps.cu", {MMA: ";"}),
     "K1": ("cmux_step.cu", {}),
     "K1 without the consumers' digit phase": (
@@ -57,10 +92,53 @@ ABLATIONS = {
     "K1 without the digit phase": (
         "cmux_step.cu", {DIG: "if (0) " + DIG,
                          DIG_PRODUCER: "if (0) " + DIG_PRODUCER}),
-    "K1 without the epilogue": ("cmux_step.cu", {EPI: "if (0) " + EPI}),
+    "K1 without the epilogue": ("cmux_step.cu", {EPI: EPI_OFF + EPI}),
     "K1 without wgmma": ("cmux_step.cu", {MMA: ";"}),
     "K1 without the Toeplitz expansion": (
         "cmux_step.cu", {EXP: "if (0) " + EXP}),
+    "K4": ("ladder_tiles.cu", {}),
+    "K4 without the digit phase after step 0": (
+        "ladder_tiles.cu", {DIG: "if (s == 0) " + DIG,
+                            DIG_PRODUCER: "if (s == 0) " + DIG_PRODUCER}),
+    "K4 without the digit phase's rotated loads": (
+        "ladder_tiles.cu", {ROT_LO: "const uint4 lo = cur;",
+                            ROT_HI: "const uint4 hi = cur;"}),
+    "K4 without the epilogue": ("ladder_tiles.cu", {EPI: EPI_OFF + EPI}),
+    "K4 without the epilogue's loads of acc": (
+        "ladder_tiles.cu", {EPI_LOAD: "for (auto& v : prev) "
+                                      "v[0] = v[1] = v[2] = v[3] = v[4] = "
+                                      "v[5] = v[6] = v[7] = make_uint2(0, 0);"}),
+    "K4 without the epilogue's stores": (
+        "ladder_tiles.cu", {EPI_STORE: "if (r.o[half] == ~size_t(0)) "
+                                       + EPI_STORE}),
+    "K4 without the A loads": (
+        "ladder_tiles.cu", {A_TX: ";", A_LOAD: ";"}),
+    "K4 with 216/72 registers": (
+        "ladder_tiles.cu", {REG_C: REG_C.replace("208", "216"),
+                            REG_P: REG_P.replace("88", "72")}),
+    "K4 with 200/104 registers": (
+        "ladder_tiles.cu", {REG_C: REG_C.replace("208", "200"),
+                            REG_P: REG_P.replace("88", "104")}),
+    "K4 without wgmma": ("ladder_tiles.cu", {MMA: ";"}),
+    "K4 without the Toeplitz expansion": (
+        "ladder_tiles.cu", {EXP: "if (0) " + EXP}),
+    "K4 with one load of the tables per launch": (
+        "ladder_tiles.cu", {RELOAD: "if (kExpand && cur_jp < 0) "
+                                    "load_tables(s, jp);",
+                            PREFETCH: "if (0) load_tables(s + 1, first_jp);"}),
+    "K4 without the fill of the tables' wraps": (
+        "ladder_tiles.cu", {WRAPS: WRAPS.replace("2 * ntab", "0")}),
+    "K4 with two table buffers and 3 stages": (
+        "ladder_tiles.cu", {TABS: "constexpr int kTabBufs = 2;"}),
+    GRID: (
+        "ladder_tiles.cu",
+        {BODY: "cmux_hopper_body<P, true, false, kTabBufs>(smem_raw",
+         "const void* g, void* out, void* dig,":
+             "const void* g, void* out, void* dig, void* counter,",
+         "               nullptr, batch,":
+             "               static_cast<unsigned*>(counter), batch,"}),
+    "K4 without the cluster barriers": (
+        "ladder_tiles.cu", {ARRIVE: "/* no barrier */", WAIT: "/* none */"}),
 }
 
 
@@ -106,10 +184,15 @@ def main() -> int:
         path = os.path.join(d, f"ablation_{i}.cu")
         with open(path, "w") as f:
             f.write(s)
-        lib = ladder.STEPS_LIB if source == "ladder_steps.cu" \
-            else cmux.STEP_LIB
-        libs[name] = KernelLibrary(path, dict(lib.functions))
-    build_all(list(libs.values()))
+        lib = {"ladder_steps.cu": ladder.STEPS_LIB,
+               "ladder_tiles.cu": ladder.TILES_LIB}.get(source,
+                                                        cmux.STEP_LIB)
+        functions = dict(lib.functions)
+        if name == GRID:
+            functions["nfa_ladder_tiles"] = [ctypes.c_void_p] * 6 + \
+                [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        libs[name] = KernelLibrary(path, functions)
+    build_all(list(libs.values()) + [ladder.TILES_LIB])
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,11 +215,31 @@ def main() -> int:
     out = torch.empty_like(acc)
     dig = cmux.digit_scratch(batch, lvl * kp1 * n, dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    # K4's cluster plan, from the real kernel: every copy launches as it
+    stages, active = ladder._occupancy(ladder.TILES_LIB.load(), dev, kp1,
+                                       lvl, planes, n)
+    plan = ladder.plan_clusters(-(-batch // cmux.KTILE), kp1 * n // 64,
+                                active)
+    plan_tiles = -(-batch // cmux.KTILE) * kp1 * n // 64
+    print(json.dumps({"K4 cluster": plan[0], "clusters": plan[1],
+                      "stages": stages, "resident clusters": active}),
+          flush=True)
 
     def run(name):
         counter.zero_()
         lib = libs[name].load()
-        if name.startswith("K5"):
+        if name == GRID:
+            blocks = min(active[0], plan_tiles)
+            launch(lib.nfa_ladder_tiles, name, dev, acc.data_ptr(),
+                   rots.data_ptr(), g.data_ptr(), out.data_ptr(),
+                   dig.data_ptr(), counter.data_ptr(), batch, kp1, lvl,
+                   planes, n, p.pbs_base_log, args.steps, 1, blocks)
+        elif name.startswith("K4"):
+            launch(lib.nfa_ladder_tiles, name, dev, acc.data_ptr(),
+                   rots.data_ptr(), g.data_ptr(), out.data_ptr(),
+                   dig.data_ptr(), batch, kp1, lvl, planes, n,
+                   p.pbs_base_log, args.steps, *plan)
+        elif name.startswith("K5"):
             launch(lib.nfa_ladder_steps, name, dev, acc.data_ptr(),
                    rots.data_ptr(), kslabs.data_ptr(), out.data_ptr(),
                    dig.data_ptr(), counter.data_ptr(), batch, kp1, lvl,
@@ -148,7 +251,8 @@ def main() -> int:
                    planes, n, p.pbs_base_log)
 
     def ms_per_step(name):
-        iters = 3 if name.startswith("K5") else 20
+        ladder_ = name.startswith(("K4", "K5"))
+        iters = 3 if ladder_ else 20
         run(name)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -159,7 +263,7 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
-        return ms / args.steps if name.startswith("K5") else ms
+        return ms / args.steps if ladder_ else ms
 
     times = {name: [] for name in libs}
     for _ in range(2):

@@ -136,6 +136,41 @@ def test_ladder_tiles_matches_plain(cuda_device, p, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 127, 129])
+def test_ladder_tiles_at_cluster_edges(cuda_device, batch):
+    """ladder_tiles at TFHE_BOOT_128_K4 on one row, on a partial 128-row
+    tile, and on one row more than a cluster owns (129 rows: two row tiles,
+    two clusters)."""
+    p = TFHE_BOOT_128_K4()
+    acc, rots, g = random_ladder(p, batch, cuda_device, 14, steps=3)
+    before = blind_rotate_fused.launches
+    got = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
+    torch.cuda.synchronize()
+    assert blind_rotate_fused.launches == before + 1
+    plan = blind_rotate_fused.plan
+    assert plan["row_tiles"] == -(-batch // 128)
+    assert plan["clusters"] <= plan["row_tiles"]
+    assert torch.equal(got, blind_rotate_fused_reference(acc, rots, g,
+                                                         p.pbs_base_log))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1])
+def test_ladder_tiles_at_zero_and_one_step(cuda_device, steps):
+    """No step copies acc; one step is one CMux step."""
+    p = TFHE_BOOT_128_K4()
+    acc, rots, g = random_ladder(p, 300, cuda_device, 15, steps=1)
+    rots, g = rots[:steps].contiguous(), g[:steps].contiguous()
+    got = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
+    torch.cuda.synchronize()
+    if steps == 0:
+        assert torch.equal(got, acc)
+    else:
+        assert torch.equal(got, cmux_step_reference(acc, rots[0], g[0],
+                                                    p.pbs_base_log))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop", [0, 1])
 @pytest.mark.parametrize("p,batch", **SHAPES)
 def test_ladder_steps_matches_plain(cuda_device, p, batch, drop):
@@ -156,9 +191,10 @@ def test_ladder_steps_matches_plain(cuda_device, p, batch, drop):
 
 @pytest.mark.cuda
 def test_ladders_take_more_tiles_than_blocks(cuda_device):
-    """A batch of more tiles than the card has resident blocks (32-row tiles
-    of ladder_tiles, 128-row x 64-coefficient tiles of ladder_steps and
-    cmux_step): the persistent kernels loop over tiles."""
+    """A batch of more tiles than the card has resident blocks (128-row x
+    64-coefficient tiles of ladder_steps and cmux_step: the persistent
+    kernels loop over tiles) and of more 128-row tiles than ladder_tiles
+    has resident clusters (each cluster owns a run of row tiles)."""
     p = SMALL
     acc, rots, g = random_ladder(p, 32 * 300 + 5, cuda_device, 10, steps=3)
     want = blind_rotate_fused_reference(acc, rots, g, p.pbs_base_log)
@@ -167,6 +203,8 @@ def test_ladders_take_more_tiles_than_blocks(cuda_device):
     assert torch.equal(got, want)
     assert torch.equal(blind_rotate_fused(acc, rots, g, p.pbs_base_log),
                        want)
+    plan = blind_rotate_fused.plan
+    assert plan["row_tiles"] == 76 and plan["clusters"] < plan["row_tiles"]
     assert torch.equal(cmux_step(acc, rots[0], g[0], p.pbs_base_log),
                        cmux_step_reference(acc, rots[0], g[0],
                                            p.pbs_base_log))
@@ -196,23 +234,27 @@ def test_redesigned_kernels_at_ragged_batches(cuda_device, batch):
 def test_redesigned_kernels_split_batches_past_the_digit_limit(
         cuda_device, monkeypatch):
     """With the digit-buffer limit lowered to two 128-row tiles at
-    TFHE_BOOT_128_K4, a batch of 600 runs as three launches of cmux_step
-    and of ladder_steps, equal to the plain versions."""
+    TFHE_BOOT_128_K4, a batch of 600 runs as three launches of cmux_step,
+    of ladder_tiles and of ladder_steps, equal to the plain versions."""
     p = TFHE_BOOT_128_K4()
     kdim = p.pbs_level * (p.glwe_dim + 1) * p.poly_degree
     monkeypatch.setattr(cmux_ops, "DIGIT_BYTES_LIMIT", 256 * kdim + 1)
     acc, rots, g = random_ladder(p, 600, cuda_device, 12, steps=2)
-    before = (cmux_step.launches, blind_rotate_fused_steps.launches)
+    before = (cmux_step.launches, blind_rotate_fused.launches,
+              blind_rotate_fused_steps.launches)
     got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_t = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
     got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
                                      p.pbs_base_log)
     torch.cuda.synchronize()
-    assert (cmux_step.launches, blind_rotate_fused_steps.launches) == \
-        (before[0] + 3, before[1] + 3)
+    assert (cmux_step.launches, blind_rotate_fused.launches,
+            blind_rotate_fused_steps.launches) == \
+        (before[0] + 3, before[1] + 3, before[2] + 3)
     assert torch.equal(got, cmux_step_reference(acc, rots[0], g[0],
                                                 p.pbs_base_log))
-    assert torch.equal(got_l, blind_rotate_fused_reference(
-        acc, rots, g, p.pbs_base_log))
+    want_l = blind_rotate_fused_reference(acc, rots, g, p.pbs_base_log)
+    assert torch.equal(got_t, want_l)
+    assert torch.equal(got_l, want_l)
 
 
 @pytest.mark.cuda
@@ -225,20 +267,42 @@ def test_redesigned_kernels_at_the_digit_limit(cuda_device):
     full = (cmux_ops.DIGIT_BYTES_LIMIT - 1) // kdim // 128 * 128
     batch = full + 300
     acc, rots, g = random_ladder(p, batch, cuda_device, 13, steps=2)
-    before = (cmux_step.launches, blind_rotate_fused_steps.launches)
+    before = (cmux_step.launches, blind_rotate_fused.launches,
+              blind_rotate_fused_steps.launches)
     got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_t = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
     got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
                                      p.pbs_base_log)
     torch.cuda.synchronize()
-    assert (cmux_step.launches, blind_rotate_fused_steps.launches) == \
-        (before[0] + 2, before[1] + 2)
+    assert (cmux_step.launches, blind_rotate_fused.launches,
+            blind_rotate_fused_steps.launches) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2)
     idx = torch.cat([torch.arange(0, 200), torch.arange(full - 200,
                                                         full + 100),
                      torch.arange(batch - 100, batch)]).to(cuda_device)
     assert torch.equal(got[idx], cmux_step_reference(
         acc[idx], rots[0, idx], g[0], p.pbs_base_log))
-    assert torch.equal(got_l[idx], blind_rotate_fused_reference(
-        acc[idx], rots[:, idx].contiguous(), g, p.pbs_base_log))
+    want_l = blind_rotate_fused_reference(
+        acc[idx], rots[:, idx].contiguous(), g, p.pbs_base_log)
+    assert torch.equal(got_t[idx], want_l)
+    assert torch.equal(got_l[idx], want_l)
+
+
+@pytest.mark.cuda
+def test_full_ladder_tiles_equals_steps_and_630_cmux_steps(cuda_device):
+    """One whole TFHE_BOOT_128_K4 ladder (630 steps) at batch 4096:
+    ladder_tiles == ladder_steps == 630 cmux_step launches, bit for bit."""
+    p = TFHE_BOOT_128_K4()
+    acc, rots, g = random_ladder(p, 4096, cuda_device, 16, steps=p.n_lwe)
+    got_t = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
+    got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
+                                     p.pbs_base_log)
+    step = acc
+    for s in range(p.n_lwe):
+        step = cmux_step(step, rots[s], g[s], p.pbs_base_log)
+    torch.cuda.synchronize()
+    assert torch.equal(got_t, got_l)
+    assert torch.equal(got_t, step)
 
 
 @pytest.mark.cuda
