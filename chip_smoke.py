@@ -28,9 +28,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ragged batch of 4000; the whole ladder through ladder_tiles and
    ladder_steps over all 630 rows of the committed key and over a short
    ladder at the L2 shape; ladder_tiles also on short ladders at batches of
-   1, 127 and 129 rows (one more than a cluster owns), at 0 and 1 steps,
-   and at a batch of more 128-row tiles than the card holds clusters at
-   once; ladder_steps (on the K-major slabs of build_all_step_kslabs) also
+   1, 127 and 129 rows (one more than a 128-row tile) and at 0 and 1
+   steps; ladder_steps (on the K-major slabs of build_all_step_kslabs) also
    on a short truncated-key ladder (drop=1) and on a short ladder at the
    ragged batch;
 3. a full 630-step ``bootstrap_with_test_poly`` on the committed K4 key at
@@ -69,9 +68,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
    no PyTorch call computes an NTT mod q or a Montgomery product mod a
-   254- or 381-bit prime, so the NTT and digit kernels have none),
-   ladder_tiles' cluster plan and ring stages, the key switch,
-   bootstraps/s per backend, the time of one TFHE_256 "crt" step
+   254- or 381-bit prime, so the NTT and digit kernels have none), the key
+   switch, bootstraps/s per backend, the time of one TFHE_256 "crt" step
    split into its NTT launches and the plain work around them, the wall
    time of msm_bn254_4096, its split by point op and width, and, within
    one call under torch.profiler, the device time and launches of K9, K10
@@ -515,15 +513,14 @@ def main() -> int:
         ladder.blind_rotate_fused_steps_reference(acc2, rots2, slabs2,
                                                   pl2.pbs_base_log)))
     del acc2, rots2, g2, slabs2, e2
-    # ladder_tiles at the edges of its cluster plan, on the committed key
+    # ladder_tiles at the edges of a 128-row tile and at 0 and 1 steps, on
+    # the committed key
 
     def check_tiles(label, a, r, g):
         got = ladder.blind_rotate_fused(a, r, g, base_log)
         worse("ladder_tiles", check_equal(
             f"ladder_tiles K4 {label}, {g.shape[0]} steps", got,
             ladder.blind_rotate_fused_reference(a, r, g, base_log)))
-        log(f"phase 2 ladder_tiles K4 {label}: cluster plan "
-            f"{ladder.blind_rotate_fused.plan}")
 
     for rows_e in (1, 127, 129):
         check_tiles(f"batch {rows_e}", acc[:rows_e],
@@ -531,17 +528,6 @@ def main() -> int:
     for steps_e in (0, 1):
         check_tiles(f"batch {BATCH}", acc, rots[:steps_e].contiguous(),
                     bsk.ggsw_i8[:steps_e])
-    wide = 40000
-    acc_w = random_u32(gen, (wide, kp1, n))
-    rots_w = torch.randint(-4 * n, 4 * n, (2, wide), generator=gen,
-                           dtype=torch.int32, device="cuda")
-    check_tiles("more row tiles than resident clusters", acc_w, rots_w,
-                bsk.ggsw_i8[:2])
-    plan = ladder.blind_rotate_fused.plan
-    if plan["clusters"] >= plan["row_tiles"]:
-        raise AssertionError(f"phase 2: {wide} rows ran as {plan}: no "
-                             "cluster owned more than one row tile")
-    del acc_w, rots_w
     et = TfheEngine(dataclasses.replace(pk4, n_lwe=short, bsk_drop_planes=1),
                     ext_backend="mxu_fused", device=dev)
     gt = et.generate_bootstrap_key(gen, et.lwe_keygen(gen),
@@ -978,10 +964,6 @@ def main() -> int:
     for kname, (ms, plain_ms, (b_ms, b_by), lib_ms) in times.items():
         log(f"phase 5: {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), library {lib_ms:.4f} ms")
-    plan = ladder.blind_rotate_fused.plan
-    log(f"phase 5: ladder_tiles ran as {plan['clusters']} clusters of "
-        f"{plan['cluster']} blocks over {plan['row_tiles']} row tiles, a "
-        f"ring of {plan['stages']} stages")
     log("phase 5: bootstraps/s " + ", ".join(
         f"{b} {r:.2f}" for b, r in rates.items()))
 

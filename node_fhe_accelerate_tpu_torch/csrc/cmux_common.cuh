@@ -683,7 +683,7 @@ static __device__ __forceinline__ void epilogue_store(
 }
 
 // Balanced gadget digits of X^rot * acc - acc for the batch rows
-// [row0, row1), written row-major to the global buffer the A tiles come from:
+// [0, batch), written row-major to the global buffer the A tiles come from:
 // dig[row * K + (l * kp1 + j) * n + c], K = lvl * kp1 * n.  An item is four
 // consecutive coefficients (one 16-byte load of acc, one 4-byte store per
 // level); threads tid, tid + nthr, ... share them, U items at a time with
@@ -711,10 +711,10 @@ static __device__ __forceinline__ void digit_advance(DigitCursor& at,
 
 template <int U>
 static __device__ __forceinline__ void digit_rows(
-    const uint32_t* acc, const int32_t* rot, int8_t* dig, int row0, int row1,
-    int kp1, int lvl, int n, int base_log, unsigned tid, unsigned nthr) {
+    const uint32_t* acc, const int32_t* rot, int8_t* dig, int batch, int kp1,
+    int lvl, int n, int base_log, unsigned tid, unsigned nthr) {
   const unsigned two_n = 2 * n;
-  const unsigned rows = static_cast<unsigned>(row1);
+  const unsigned rows = static_cast<unsigned>(batch);
   const unsigned row_words = kp1 * n;          // uint32 words of a row
   const unsigned kdim = lvl * row_words;       // digit bytes of a row
   const int total = lvl * base_log;
@@ -724,7 +724,7 @@ static __device__ __forceinline__ void digit_rows(
   const uint32_t half = 1u << (base_log - 1);
   const unsigned quads = row_words / 4;
   const unsigned step_rows = nthr / quads, step_k = 4 * (nthr % quads);
-  DigitCursor at{row0 + tid / quads, 4 * (tid % quads)};
+  DigitCursor at{tid / quads, 4 * (tid % quads)};
   DigitCursor ahead = at;
   unsigned r_next[U];
 #pragma unroll
@@ -799,10 +799,9 @@ static __device__ __forceinline__ void digit_rows(
 }
 
 // On-chip Toeplitz expansion of one B tile (cmux_step.cu, ladder_tiles.cu):
-// the 64P rows of
-// a column tile (coefficients 64 gq + 8q + w, plane p, row (qP + p) * 8 + w)
-// over the 128 K bytes of stage kc, from the tables of one output
-// component jp in shared memory.  Table (l, j, p) holds
+// the 64P rows of a column tile (coefficients 64 gq + 8q + w, plane p, row
+// (qP + p) * 8 + w) over the 128 K bytes of stage kc, from the tables of
+// one output component jp in shared memory.  Table (l, j, p) holds
 // [g~[2N-16 .. 2N) | g~[0 .. 2N) | g~[0 .. 16)] at stride hs, so table
 // position u holds g~[(u - 16) mod 2N] for u < 2N + 32.  Byte m of
 // 16-byte piece i of row (q, p, w) is T[c, r] = g~[(x + w - m) mod 2N],
@@ -884,18 +883,6 @@ static __device__ __forceinline__ void consumers_grid_barrier(
   asm volatile("bar.sync 1, %0;" ::"n"(2 * kWgThreads) : "memory");
 }
 
-// The cluster barrier, split: every thread of every block of the cluster
-// arrives (with release semantics: its writes, global ones included, are
-// visible in the cluster once the barrier completes) and later waits (with
-// acquire semantics).  A thread alternates the two.
-static __device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;" ::: "memory");
-}
-
-static __device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;" ::: "memory");
-}
-
 // Arguments of a Hopper CMux launch (one kernel parameter).
 struct HopperArgs {
   const uint32_t* acc;     // (B, k+1, N) input accumulator
@@ -904,9 +891,8 @@ struct HopperArgs {
   size_t g_step;           // bytes from one step's key row to the next
   uint32_t* out;           // (B, k+1, N), distinct from acc
   int8_t* dig;             // (ceil(B / 128) * 128, lvl * (k+1) * N)
-  unsigned* counter;       // zeroed grid-barrier counter (grid mode)
+  unsigned* counter;       // zeroed grid-barrier counter
   int batch, kp1, lvl, n, base_log, drop, n_steps, stages;
-  int cluster;             // blocks per cluster (cluster mode)
 };
 
 static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
@@ -916,38 +902,32 @@ static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
   return static_cast<size_t>(lvl) * kp1 * planes * (2 * n + 2 * kWrap);
 }
 
-// The body of the redesigned kernels.  A *domain* of blocks owns a run of
-// 128-row tiles for every step: the whole grid, a persistent cooperative
-// launch that meets at a hand-written grid barrier (kCluster = false:
-// cmux_step.cu, ladder_steps.cu), or one thread-block cluster that meets
-// only its own blocks at barrier.cluster (kCluster = true: ladder_tiles.cu,
-// the row tiles split evenly over the clusters).  For every step s, (1) all
-// warps of the domain's blocks write the digits of the domain's rows to
-// h.dig and arrive at the domain's barrier; (2) each block walks a
-// contiguous range of the domain's tiles (128 rows x 64P columns, column
-// tile ct = jp * N/64 + coefficient block, row tile fastest): the producer
-// warpgroup fills the ring -- the A tile by TMA once the barrier is
-// complete, the B tile by TMA from the K-major slabs (kExpand = false,
-// ladder_steps.cu) or expanded on chip from the tables of step s's key row
-// h.g + s * h.g_step (kExpand = true: cmux_step.cu, one step;
-// ladder_tiles.cu, every step) -- and the two consumer warpgroups run wgmma
-// and the CMux add; (3) a second barrier of the domain before the next
-// step reads the accumulator.  Step 0 reads h.acc, later steps update h.out
-// in place.  The roles stay on separate paths for the whole kernel, as
-// setmaxnreg needs; they meet only at mbarriers, named barriers and the
-// domain's barrier.
+// The body of the three redesigned kernels, one persistent cooperative
+// grid: for every step s, (1) all warps of all blocks write the digits of
+// every row to h.dig, and each block arrives at a grid barrier; (2) each
+// block walks a contiguous range of the tiles (128 rows x 64P columns,
+// column tile ct = jp * N/64 + coefficient block, row tile fastest): the
+// producer warpgroup fills the ring -- the A tile by TMA once the barrier
+// is complete, the B tile by TMA from the K-major slabs (kExpand = false,
+// ladder_steps.cu) or expanded on chip from the tables of a key row
+// (kExpand = true) -- and the two consumer warpgroups run wgmma and the
+// CMux add; (3) a second grid barrier before the next step reads the
+// accumulator.  Step 0 reads h.acc, later steps update h.out in place.
+// The roles stay on separate paths for the whole kernel, as setmaxnreg
+// needs; they meet only at mbarriers, named barriers and the counter.
 //
-// The tables of the expansion are keyed on (step, jp).  With one buffer
-// (kTabBufs = 1) the producer reloads them when the key changes and issues
-// the next step's first ones as soon as the step's last expansion is done.
-// With two (kTabBufs = 2: an option of ladder_tiles.cu that the ablation
-// script times) it issues the next key's copies into the free buffer as
-// soon as it switches to a key, so that a reload never waits on them; the
-// second buffer costs a stage of the ring.
-template <int P, bool kExpand, bool kCluster = false, int kTabBufs = 1>
+// The expansion's tables are those of one output component jp of a key
+// row.  cmux_step.cu (kStepKeys = false) runs one step on the one row h.g
+// and reloads them when jp changes.  ladder_tiles.cu (kStepKeys = true)
+// reads step s's row at h.g + s * h.g_step, reloads them when the step or
+// jp changes, and issues the next step's first ones as soon as its last
+// expansion of the step is done.  The step key is a template argument so
+// that cmux_step.cu keeps the registers of a single row.
+template <int P, bool kExpand, bool kStepKeys = false>
 static __device__ __forceinline__ void cmux_hopper_body(
     unsigned char* smem_raw, const CUtensorMap* map_a,
     const CUtensorMap* map_b, const HopperArgs& h) {
+  static_assert(kExpand || !kStepKeys, "step keys are expanded on chip");
   const int n = h.n;
   const int kp1 = h.kp1;
   const int hs = 2 * n + 2 * kWrap;
@@ -955,39 +935,25 @@ static __device__ __forceinline__ void cmux_hopper_body(
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* tab = ring + h.stages * sb;
-  const size_t tab_stride =
-      kExpand ? (table_bytes(h.lvl, kp1, P, n) + 15) & ~size_t(15) : 0;
-  uint64_t* full = reinterpret_cast<uint64_t*>(tab + kTabBufs * tab_stride);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      tab + (kExpand ? (table_bytes(h.lvl, kp1, P, n) + 15) & ~size_t(15)
+                     : 0));
   uint64_t* empty = full + kMaxStages;
-  uint64_t* tab_bar = empty + kMaxStages;      // one per table buffer
+  uint64_t* tab_bar = empty + kMaxStages;
   const int nk = h.lvl * kp1 * n / kChunk;
   const int row_tiles = (h.batch + kTileM - 1) / kTileM;
+  const int tiles = row_tiles * kp1 * (n / 64);
   const unsigned nb = gridDim.x;
-  // This block's domain: its row tiles [rt0, rt1), rows [row0, row1) and
-  // tiles [t0, t1) of the domain's (rt1 - rt0) x (k+1) N/64; its threads'
-  // share of the digits.  The grid is one domain.
-  const int dom_blocks = kCluster ? h.cluster : static_cast<int>(nb);
-  const int dom = kCluster ? blockIdx.x / h.cluster : 0;
-  const int rank = kCluster ? blockIdx.x - dom * h.cluster : blockIdx.x;
-  const int doms = kCluster ? static_cast<int>(nb) / h.cluster : 1;
-  const int rt0 = kCluster ? dom * row_tiles / doms : 0;
-  const int rt1 = kCluster ? (dom + 1) * row_tiles / doms : row_tiles;
-  const int nrt = rt1 - rt0;
-  const int row0 = rt0 * kTileM;
-  const int row1 = kCluster ? min(h.batch, rt1 * kTileM) : h.batch;
-  const int tiles = nrt * kp1 * (n / 64);
-  const int t0 = static_cast<int>(static_cast<long long>(rank) * tiles /
-                                  dom_blocks);
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles /
+                                  nb);
   const int t1 = static_cast<int>(
-      static_cast<long long>(rank + 1) * tiles / dom_blocks);
-  const unsigned dtid = rank * kHopperThreads + threadIdx.x;
-  const unsigned dthreads = dom_blocks * kHopperThreads;
+      static_cast<long long>(blockIdx.x + 1) * tiles / nb);
   if (threadIdx.x == 0) {
     for (int i = 0; i < h.stages; ++i) {
       mbar_init(&full[i], kExpand ? kWgThreads : 1);
       mbar_init(&empty[i], kConsumerWarps);
     }
-    for (int b = 0; b < kTabBufs; ++b) mbar_init(&tab_bar[b], 1);
+    mbar_init(tab_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -1009,128 +975,74 @@ static __device__ __forceinline__ void cmux_hopper_body(
     const int ntab = h.lvl * kp1 * P;
     const int two_n = 2 * n;
     int stage = 0;
-    uint32_t phase = 0;
-    uint32_t tab_phase = 0;          // bit b: the parity of tab_bar[b]
-    int cur_s = -1, cur_jp = -1;     // the key of the tables in use
-    int buf = kTabBufs - 1;          // their buffer
+    uint32_t phase = 0, tab_phase = 0;
+    int cur_s = -1, cur_jp = -1;
     bool tables_pending = false;
     // Issue the bulk copies of the tables of step s's key row for output
-    // component jp into buffer b, whose readers are done with it: one copy
-    // a table, without its wraps (a 16-byte copy costs the producer about
-    // what a 2N-byte one does).
-    auto issue_tables = [&](int b, int s, int jp) {
+    // component jp once every producer thread is done reading the previous
+    // ones.
+    auto load_tables = [&](int s, int jp) {
+      if (cur_jp >= 0)
+        asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
       if (pt == 0) {
         fence_async_shared();
-        mbar_expect_tx(&tab_bar[b], static_cast<uint32_t>(ntab) * two_n);
-        const int8_t* key = h.g + s * h.g_step;
+        mbar_expect_tx(tab_bar, static_cast<uint32_t>(ntab) * hs);
+        const int8_t* key = kStepKeys ? h.g + s * h.g_step : h.g;
         for (int i = 0; i < ntab; ++i) {
           const int lj = i / P, p = i - lj * P;
           const int8_t* src =
               key + (static_cast<size_t>(lj * kp1 + jp) * P + p) * two_n;
-          uint8_t* dst = tab + b * tab_stride + static_cast<size_t>(i) * hs;
-          bulk_load(dst + kWrap, src, two_n, &tab_bar[b]);
+          uint8_t* dst = tab + static_cast<size_t>(i) * hs;
+          bulk_load(dst, src + two_n - kWrap, kWrap, tab_bar);
+          bulk_load(dst + kWrap, src, two_n, tab_bar);
+          bulk_load(dst + kWrap + two_n, src, kWrap, tab_bar);
         }
       }
-    };
-    // Once buffer b's copies have landed: every producer thread fills its
-    // share of the wraps from the tables themselves (head = the last 16
-    // bytes, tail = the first 16), then they meet, which also tells that
-    // every thread is past the tables it read before.
-    auto fill_wraps = [&](int b) {
-      uint8_t* tb = tab + b * tab_stride;
-      for (int i = pt; i < 2 * ntab; i += kWgThreads) {
-        uint8_t* t = tb + static_cast<size_t>(i < ntab ? i : i - ntab) * hs;
-        if (i < ntab)
-          *reinterpret_cast<uint4*>(t) =
-              *reinterpret_cast<const uint4*>(t + two_n);
-        else
-          *reinterpret_cast<uint4*>(t + kWrap + two_n) =
-              *reinterpret_cast<const uint4*>(t + kWrap);
-      }
-      asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
-    };
-    // One buffer: reload it once every producer thread is done reading it.
-    auto load_tables = [&](int s, int jp) {
-      if (cur_jp >= 0)
-        asm volatile("bar.sync 2, %0;" ::"n"(kWgThreads) : "memory");
-      issue_tables(0, s, jp);
       cur_s = s;
       cur_jp = jp;
       tables_pending = true;
     };
-    const int first_jp = nrt ? t0 / nrt / (n / 64) : 0;
+    const int first_jp = t0 / row_tiles / (n / 64);
     // The first tables' copies overlap the digit phase.
-    if (kExpand && t0 < t1) {
-      if (kTabBufs == 1)
-        load_tables(0, first_jp);
-      else
-        issue_tables(0, 0, first_jp);
-    }
+    if (kExpand && t0 < t1) load_tables(0, first_jp);
     for (int s = 0; s < h.n_steps; ++s) {
       // This warpgroup's share of the digit phase, once the previous
-      // step's accumulator is complete in the domain.
-      if (s > 0) {
-        if (kCluster)
-          cluster_wait();
-        else
-          wait_counter(h.counter, 2u * s * nb);
-      }
+      // step's accumulator is complete everywhere.
+      if (s > 0) wait_counter(h.counter, 2u * s * nb);
       digit_rows<4>(s ? h.out : h.acc,
-                    h.rots + static_cast<size_t>(s) * h.batch, h.dig, row0,
-                    row1, kp1, h.lvl, n, h.base_log, dtid, dthreads);
+                    h.rots + static_cast<size_t>(s) * h.batch, h.dig,
+                    h.batch, kp1, h.lvl, n, h.base_log,
+                    blockIdx.x * kHopperThreads + threadIdx.x,
+                    nb * kHopperThreads);
       fence_async_global();
-      if (kCluster)
-        cluster_arrive();
-      else
-        asm volatile("bar.arrive 3, %0;" ::"n"(kHopperThreads) : "memory");
+      asm volatile("bar.arrive 3, %0;" ::"n"(kHopperThreads) : "memory");
       bool a_ready = false;
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / nrt;
-        const int rt = rt0 + (t - ct * nrt);
+        const int ct = t / row_tiles;
+        const int rt = t - ct * row_tiles;
         const int jp = ct / (n / 64);
         const int gq = ct - jp * (n / 64);
-        if (kExpand && kTabBufs == 2 && (jp != cur_jp || s != cur_s)) {
-          // Switch to the buffer the key was issued into, then issue the
-          // next key -- a later output component of this step, else the
-          // next step's first -- into the one every thread has left.
-          buf ^= 1;
-          cur_s = s;
-          cur_jp = jp;
-          mbar_wait(&tab_bar[buf], (tab_phase >> buf) & 1u);
-          tab_phase ^= 1u << buf;
-          fill_wraps(buf);
-          if ((jp + 1) * (n / 64) * nrt < t1)
-            issue_tables(buf ^ 1, s, jp + 1);
-          else if (s + 1 < h.n_steps)
-            issue_tables(buf ^ 1, s + 1, first_jp);
-        }
-        if (kExpand && kTabBufs == 1 && (jp != cur_jp || s != cur_s))
+        if (kExpand && (jp != cur_jp || (kStepKeys && s != cur_s)))
           load_tables(s, jp);
         if (kExpand && tables_pending) {
-          mbar_wait(&tab_bar[0], tab_phase);
+          mbar_wait(tab_bar, tab_phase);
           tab_phase ^= 1u;
           tables_pending = false;
-          fill_wraps(0);
         }
         for (int kc = 0; kc < nk; ++kc) {
           if (!kExpand && pt != 0) break;
           mbar_wait(&empty[stage], phase ^ 1u);
           uint8_t* st = ring + stage * sb;
           if (kExpand) {
-            expand_b_tile<P>(st + kATileBytes, tab + buf * tab_stride, hs,
-                             n, kc, gq, pt);
+            expand_b_tile<P>(st + kATileBytes, tab, hs, n, kc, gq, pt);
             fence_async_shared();
           }
-          if (!a_ready) {
-            // The domain's digits of step s are written.
-            if (kCluster)
-              cluster_wait();
-            else if (pt == 0)
-              wait_counter(h.counter, (2u * s + 1u) * nb);
-            if (pt == 0) fence_async_global();
-            a_ready = true;
-          }
           if (pt == 0) {
+            if (!a_ready) {
+              wait_counter(h.counter, (2u * s + 1u) * nb);
+              fence_async_global();
+              a_ready = true;
+            }
             if (kExpand) {
               mbar_expect_tx_only(&full[stage], kATileBytes);
             } else {
@@ -1147,14 +1059,10 @@ static __device__ __forceinline__ void cmux_hopper_body(
           }
         }
       }
-      if (kCluster && !a_ready) cluster_wait();
-      if (s + 1 < h.n_steps) {
-        // The next step's first tables, as soon as this step's expansions
-        // are done; they do not depend on the accumulator.
-        if (kExpand && kTabBufs == 1 && t0 < t1)
-          load_tables(s + 1, first_jp);
-        if (kCluster) cluster_arrive();      // nothing of acc to store
-      }
+      // The next step's first tables, as soon as this step's expansions
+      // are done; they do not depend on the accumulator.
+      if (kStepKeys && s + 1 < h.n_steps && t0 < t1)
+        load_tables(s + 1, first_jp);
     }
   } else {
     // Two consumer warpgroups.
@@ -1164,25 +1072,22 @@ static __device__ __forceinline__ void cmux_hopper_body(
     int stage = 0;
     uint32_t phase = 0;
     for (int s = 0; s < h.n_steps; ++s) {
-      if (kCluster && s > 0) cluster_wait();
       const uint32_t* src = s ? h.out : h.acc;
       digit_rows<8>(src, h.rots + static_cast<size_t>(s) * h.batch, h.dig,
-                    row0, row1, kp1, h.lvl, n, h.base_log, dtid, dthreads);
+                    h.batch, kp1, h.lvl, n, h.base_log,
+                    blockIdx.x * kHopperThreads + threadIdx.x,
+                    nb * kHopperThreads);
       fence_async_global();
       // The block's digits, the producer's share included, are written:
-      // arrive at the domain's barrier.
-      if (kCluster) {
-        cluster_arrive();
-      } else {
-        asm volatile("bar.sync 3, %0;" ::"n"(kHopperThreads) : "memory");
-        if (threadIdx.x == 0) {
-          __threadfence();
-          atomicAdd(h.counter, 1u);
-        }
+      // arrive at the grid barrier.
+      asm volatile("bar.sync 3, %0;" ::"n"(kHopperThreads) : "memory");
+      if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(h.counter, 1u);
       }
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / nrt;
-        const int rt = rt0 + (t - ct * nrt);
+        const int ct = t / row_tiles;
+        const int rt = t - ct * row_tiles;
         const int jp = ct / (n / 64);
         const TileRows rows = tile_rows(rt * kTileM + wg * 64, h.batch, kp1,
                                         n, jp, (ct - jp * (n / 64)) * 64);
@@ -1192,12 +1097,8 @@ static __device__ __forceinline__ void cmux_hopper_body(
         consume_tile<P>(d, ring, full, empty, h.stages, nk, stage, phase);
         epilogue_store<P>(d, prev, h.out, rows, h.drop);
       }
-      if (kCluster) {
-        cluster_wait();              // the digit barrier, long complete
-        if (s + 1 < h.n_steps) cluster_arrive();   // this step's stores
-      } else if (s + 1 < h.n_steps) {
+      if (s + 1 < h.n_steps)
         consumers_grid_barrier(h.counter, (2u * s + 2u) * nb);
-      }
     }
   }
 }
@@ -1207,7 +1108,7 @@ static __device__ __forceinline__ void cmux_hopper_body(
 static __host__ __device__ __forceinline__ size_t hopper_smem_bytes(
     int planes, int stages, size_t extra) {
   return 1024 + static_cast<size_t>(stages) * stage_bytes(planes) +
-         ((extra + 15) & ~size_t(15)) + (2 * kMaxStages + 2) * 8;
+         ((extra + 15) & ~size_t(15)) + (2 * kMaxStages + 1) * 8;
 }
 
 // Host side: a 2-D uint8 tensor map over a row-major (rows, cols) buffer,
@@ -1273,11 +1174,10 @@ static inline cudaError_t pick_stages(int planes, size_t extra, int* stages,
   return cudaErrorInvalidValue;
 }
 
-// Launch `fn`, a kernel that runs cmux_hopper_body in grid mode with
-// `extra` bytes of shared memory beside the ring, as a persistent
-// cooperative grid: every block must be resident for the grid barriers, so
-// the grid is the smaller of the tile count and what the device holds at
-// once.  (ladder_tiles.cu launches its clusters itself.)
+// Launch `fn`, a kernel that runs cmux_hopper_body with `extra` bytes of
+// shared memory beside the ring, as a persistent cooperative grid: every
+// block must be resident for the grid barriers, so the grid is the smaller
+// of the tile count and what the device holds at once.
 static inline cudaError_t launch_hopper(const void* fn, int planes,
                                         size_t extra,
                                         const CUtensorMap& map_a,

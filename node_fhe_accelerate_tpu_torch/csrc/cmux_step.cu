@@ -27,9 +27,8 @@
 // * each block walks a contiguous range of the tiles of 128 rows x 64
 //   coefficients x P planes of one output component jp.  Its producer
 //   warpgroup loads jp's tables, lvl * (k+1) * P runs of 2N bytes with
-//   16 bytes of wrap on either side (21.8 KB at K4), by one bulk
-//   asynchronous copy a run under an mbarrier (the wraps then copied within
-//   shared memory), and reloads them only when jp changes: one
+//   16 bytes of wrap on either side (21.8 KB at K4), by bulk asynchronous
+//   copies under an mbarrier, and reloads them only when jp changes: one
 //   jp at a time is what lets a 4-stage ring of 48 KB stages fit beside
 //   them (all five would take 109 KB).  Per stage of 128 K bytes it
 //   expands the K-major B tile into the 128-byte swizzle: a row of the
@@ -93,7 +92,7 @@ extern "C" int nfa_cmux_step(const void* acc, const void* rot, const void* g,
                static_cast<const int32_t*>(rot),
                static_cast<const int8_t*>(g), 0, static_cast<uint32_t*>(out),
                static_cast<int8_t*>(dig), static_cast<unsigned*>(counter),
-               batch, kp1, lvl, n, base_log, 0, 1, 0, 0};
+               batch, kp1, lvl, n, base_log, 0, 1, 0};
   const void* kernels[] = {
       reinterpret_cast<const void*>(cmux_step_kernel<1>),
       reinterpret_cast<const void*>(cmux_step_kernel<2>),

@@ -102,7 +102,7 @@ extern "C" int nfa_ladder_steps(const void* acc, const void* rots,
                static_cast<const int32_t*>(rots), nullptr, 0,
                static_cast<uint32_t*>(out), static_cast<int8_t*>(dig),
                static_cast<unsigned*>(counter), batch, kp1, lvl, n,
-               base_log, drop, n_steps, 0, 0};
+               base_log, drop, n_steps, 0};
   const void* kernels[] = {
       reinterpret_cast<const void*>(ladder_steps_kernel<1>),
       reinterpret_cast<const void*>(ladder_steps_kernel<2>),

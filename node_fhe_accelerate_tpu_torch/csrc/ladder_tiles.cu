@@ -23,44 +23,38 @@
 // come on top.
 //
 // Design (cmux_common.cuh cmux_hopper_body<P, true, true>: K1's core with a
-// step loop).  The TPU's "batch tile outer" becomes a thread-block cluster
-// that owns a run of 128-row tiles for every step and meets only its own
-// blocks, at barrier.cluster:
+// step loop and a key row per step).  One persistent cooperative grid, one
+// block per SM, as K1 and K5:
 //
-// * per step, the cluster's warps write the digits of its rows to a global
-//   row-major buffer (it stays in L2) and arrive at the cluster barrier;
-//   each block's producer expands its first B tile, then waits there
-//   before its first TMA load of A;
-// * the cluster's blocks split its tiles of 128 rows x 64P columns (20 per
-//   row tile at K4, 32 at k=1, N=1024) in contiguous ranges, row tile
-//   fastest, so a block expands B from the tables of two or three output
-//   components jp a step.  The tables are keyed on (step, jp): the
-//   producer reloads them (21.8 KB at K4 from the step's key row, which
-//   every block reads through L2: one bulk copy a table, its 16-byte wraps
-//   then filled within shared memory, as 80 more copies of 16 bytes cost
-//   as much as the rest) when either changes, and issues the next step's
-//   first ones as soon as its last expansion of the step is done;
-// * a second cluster barrier closes the step: the next step's digits read
-//   accumulator rows that other blocks of the cluster wrote.
+// * per step, all warps of all blocks write the digits of every row to a
+//   global row-major buffer (it stays in L2) and arrive at a grid barrier
+//   (a counter the wrapper zeroes); each block's producer expands its first
+//   B tile, then waits there before its first TMA load of A;
+// * each block walks a contiguous range of the tiles of 128 rows x 64P
+//   columns (row tile fastest: 640 at K4, batch 4096, 4.85 a block), so it
+//   expands B from the tables of two or three output components jp a step.
+//   The tables are keyed on (step, jp): the producer reloads them (bulk
+//   copies of 21.8 KB at K4 from the step's key row, which every block
+//   reads through L2) when either changes, and issues the next step's first
+//   ones as soon as its last expansion of the step is done;
+// * a second grid barrier closes the step: the next step's digits read
+//   accumulator rows that other blocks wrote.
 //
-// There is no grid-wide barrier and no cooperative launch: the launch is
-// cudaLaunchKernelEx with a cluster dimension, and clusters never wait for
-// each other, so they need not all be resident.  ops/ladder.py
-// `plan_clusters` picks the cluster size c <= 8 and the number of clusters
-// m from the row tiles R, the column tiles C of a row tile and the
-// clusters of each size the card holds at once
-// (nfa_ladder_tiles_occupancy): the c whose busiest block has the fewest
-// tiles a step, ceil(ceil(R / m) C / c) with m = min(R, resident
-// clusters), the smaller c on a tie.  At K4, batch 4096 (R = 32, C = 20)
-// that is 32 clusters of 4: 128 blocks of 5 tiles each.  A batch of 256,
-// 77 or 40 rows (R <= 2) gets clusters of 7 or 8, so it still spreads over
-// 7-16 SMs where a block per row tile would use 1-2; a batch of more row
-// tiles than resident clusters gives each cluster a longer run.
+// The TPU's "batch tile outer" (a tile of rows runs its whole ladder
+// without waiting for another) has a faithful Hopper form: thread-block
+// clusters that own their row tiles for every step and meet only at
+// barrier.cluster.  It was built and measured (PERF.md): its barriers cost
+// nothing measurable, but a cluster must own whole 128-row tiles, and an
+// H100 SXM holds 39 clusters of 3 and 30 of 4, so batch 4096's 32 row
+// tiles ran as 96 blocks with 7 tiles on the busiest, ~20% slower a step
+// than this grid's 4.85 a block.  Splitting every step's tiles over all
+// SMs keeps small batches spread too: a batch of 256 rows (40 tiles) runs
+// on 40 blocks.
 //
 // Shared memory at K4: 4 stages of 48 KB and one set of tables (21.8 KB),
 // 219 KB of the 227 KB.  A second set, so that a reload never waits on its
 // copies, leaves room for 3 stages only, and the lost stage costs more
-// than the reloads (scripts/ablate_cmux_kernels.py, PERF.md).
+// than the reloads (PERF.md).
 //
 // Exactness as cmux_step.cu.  The wrapper keeps B (k+1) N lvl below 2^31
 // bytes per launch (ops/cmux.py batch_chunks): the digit offsets are
@@ -72,90 +66,29 @@ namespace {
 
 using namespace nfa;
 
-constexpr int kMaxCluster = 8;   // the portable cluster size
-constexpr int kTabBufs = 1;      // table buffers (2 costs a ring stage)
-
 template <int P>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 ladder_tiles_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
                     const HopperArgs h) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cmux_hopper_body<P, true, true, kTabBufs>(smem_raw, &map_a, &map_a, h);
-}
-
-// The kernel for `planes`, with its ring picked and its shared memory
-// opted into.
-cudaError_t prepare(int kp1, int lvl, int planes, int n, const void** fn,
-                    int* stages, size_t* smem) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(ladder_tiles_kernel<1>),
-      reinterpret_cast<const void*>(ladder_tiles_kernel<2>),
-      reinterpret_cast<const void*>(ladder_tiles_kernel<3>),
-      reinterpret_cast<const void*>(ladder_tiles_kernel<4>)};
-  *fn = kernels[planes - 1];
-  const size_t tables =
-      kTabBufs * ((table_bytes(lvl, kp1, planes, n) + 15) & ~size_t(15));
-  cudaError_t err = pick_stages(planes, tables, stages, smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(*fn,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
-}
-
-// A launch of `clusters` clusters of `cluster` blocks.
-cudaLaunchConfig_t cluster_config(int cluster, int clusters, size_t smem,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * clusters);
-  cfg.blockDim = dim3(kHopperThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  cmux_hopper_body<P, true, true>(smem_raw, &map_a, &map_b, h);
 }
 
 }  // namespace
 
-// The ring of stages the kernel runs with at this shape, and active[c - 1]:
-// how many clusters of c blocks the current device holds at once, for
-// c = 1 .. 8.  Returns a cudaError_t.
-extern "C" int nfa_ladder_tiles_occupancy(int kp1, int lvl, int planes,
-                                          int n, int* stages, int* active) {
-  if (!hopper_shape_ok(1, kp1, lvl, planes, n, 1, 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = nullptr;
-  size_t smem = 0;
-  cudaError_t err = prepare(kp1, lvl, planes, n, &fn, stages, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int c = 1; c <= kMaxCluster; ++c) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(c, 1, smem, nullptr,
-                                                  &attr);
-    err = cudaOccupancyMaxActiveClusters(&active[c - 1], fn, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
-}
-
-// Launch the ladder on `stream` as `clusters` clusters of `cluster` blocks.
-// acc/out: uint32 bits (B, k+1, N), distinct buffers; rots: int32
-// (n_steps, B); g: int8 (n_steps, lvl, k+1, k+1, P, 2N), 16-byte aligned;
-// dig: int8 scratch of (ceil(B/128)*128, lvl*(k+1)*N).  The caller has
-// checked shapes and the int32 bound.  Returns a cudaError_t.
+// Launch the ladder on `stream`.  acc/out: uint32 bits (B, k+1, N),
+// distinct buffers; rots: int32 (n_steps, B); g: int8
+// (n_steps, lvl, k+1, k+1, P, 2N), 16-byte aligned; dig: int8 scratch of
+// (ceil(B/128)*128, lvl*(k+1)*N); counter: one zeroed uint32.  The caller
+// has checked shapes and the int32 bound.  Returns a cudaError_t.
 extern "C" int nfa_ladder_tiles(const void* acc, const void* rots,
                                 const void* g, void* out, void* dig,
-                                int batch, int kp1, int lvl, int planes,
-                                int n, int base_log, int n_steps,
-                                int cluster, int clusters, void* stream) {
+                                void* counter, int batch, int kp1, int lvl,
+                                int planes, int n, int base_log, int n_steps,
+                                void* stream) {
   if (!hopper_shape_ok(batch, kp1, lvl, planes, n, base_log, 0) ||
-      n_steps < 0 || reinterpret_cast<uintptr_t>(g) % 16 || cluster < 1 ||
-      cluster > kMaxCluster || clusters < 1)
+      n_steps < 0 || reinterpret_cast<uintptr_t>(g) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned long long kdim =
       static_cast<unsigned long long>(lvl) * kp1 * n;
@@ -168,17 +101,14 @@ extern "C" int nfa_ladder_tiles(const void* acc, const void* rots,
                static_cast<const int8_t*>(g),
                static_cast<size_t>(kdim) * kp1 * planes * 2,
                static_cast<uint32_t*>(out), static_cast<int8_t*>(dig),
-               nullptr, batch, kp1, lvl, n, base_log, 0, n_steps, 0,
-               cluster};
-  const void* fn = nullptr;
-  size_t smem = 0;
-  err = prepare(kp1, lvl, planes, n, &fn, &h.stages, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(
-      cluster, clusters, smem, static_cast<cudaStream_t>(stream), &attr);
-  void* args[] = {&map_a, &h};
-  err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+               static_cast<unsigned*>(counter), batch, kp1, lvl, n,
+               base_log, 0, n_steps, 0};
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(ladder_tiles_kernel<1>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<2>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<3>),
+      reinterpret_cast<const void*>(ladder_tiles_kernel<4>)};
+  return static_cast<int>(launch_hopper(
+      kernels[planes - 1], planes, table_bytes(lvl, kp1, planes, n), map_a,
+      map_a, h, static_cast<cudaStream_t>(stream)));
 }

@@ -9,8 +9,7 @@ For every step s, in order,
                  (digits(X^rot[s] * acc - acc) x Toeplitz(g~[s]_p))
 
 * ``blind_rotate_fused`` (batch tile outer) reads the bootstrap key's int8
-  planes as stored and launches ``csrc/ladder_tiles.cu`` as thread-block
-  clusters that own runs of row tiles (``plan_clusters``);
+  planes as stored and launches ``csrc/ladder_tiles.cu``;
 * ``blind_rotate_fused_steps`` (steps outer) reads the K-major slabs of
   ``build_all_step_kslabs`` and launches ``csrc/ladder_steps.cu``.
 
@@ -24,23 +23,19 @@ import ctypes
 import torch
 
 from ._build import KernelLibrary
-from .cmux import (BLOCK, KTILE, batch_chunks, check_acc_rot, check_gadget,
+from .cmux import (BLOCK, batch_chunks, check_acc_rot, check_gadget,
                    check_weights, cmux_step_reference, contract_i8,
                    digit_scratch, launch, recombine_planes, step_digits)
 
 __all__ = ["blind_rotate_fused", "blind_rotate_fused_reference",
            "blind_rotate_fused_steps", "blind_rotate_fused_steps_reference",
-           "plan_clusters", "TILES_LIB", "STEPS_LIB"]
+           "TILES_LIB", "STEPS_LIB"]
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 TILES_LIB = KernelLibrary(
-    "ladder_tiles.cu",
-    {"nfa_ladder_tiles": [_PTR] * 5 + [_INT] * 9 + [_PTR],
-     "nfa_ladder_tiles_occupancy": [_INT] * 4 + [_PTR] * 2})
+    "ladder_tiles.cu", {"nfa_ladder_tiles": [_PTR] * 6 + [_INT] * 7 + [_PTR]})
 STEPS_LIB = KernelLibrary(
     "ladder_steps.cu", {"nfa_ladder_steps": [_PTR] * 6 + [_INT] * 8 + [_PTR]})
-MAX_CLUSTER = 8          # the portable cluster size
-_OCCUPANCY: dict = {}
 
 
 def _flatten(acc: torch.Tensor, a_rots: torch.Tensor, n_steps: int):
@@ -91,52 +86,6 @@ def blind_rotate_fused_steps_reference(acc: torch.Tensor,
     return acc
 
 
-def plan_clusters(row_tiles: int, col_tiles: int,
-                  active) -> tuple[int, int]:
-    """(blocks per cluster, clusters) of a ``ladder_tiles`` launch over
-    ``row_tiles`` tiles of 128 rows, each of ``col_tiles`` column tiles of
-    64 coefficients (``(k+1) N / 64``).  ``active[c - 1]`` is how many
-    clusters of c blocks the card holds at once.
-
-    A cluster owns a contiguous run of row tiles for the whole ladder, and
-    its blocks split the run's tiles.  The step takes as long as the
-    busiest block, so the size c is the one that gives it the fewest tiles,
-    ceil(ceil(R / m) * C / c) with m = min(R, active[c - 1]) clusters; on a
-    tie, the smaller c (fewer blocks for the same time)."""
-    if row_tiles < 1 or col_tiles < 1:
-        raise ValueError(f"{row_tiles} row tiles of {col_tiles} column "
-                         "tiles: nothing to launch")
-    best = None
-    for c, resident in enumerate(active, start=1):
-        if resident < 1:
-            continue
-        m = min(row_tiles, resident)
-        busiest = -(-(-(-row_tiles // m)) * col_tiles // c)
-        if best is None or busiest < best[0]:
-            best = (busiest, c, m)
-    if best is None:
-        raise ValueError("no cluster size fits on the card")
-    return best[1], best[2]
-
-
-def _occupancy(lib, device, kp1: int, lvl: int, planes: int, n: int):
-    """(stages, resident clusters of 1 .. MAX_CLUSTER blocks) of the
-    ladder_tiles kernel at this shape on ``device``, asked once."""
-    key = (device.index, kp1, lvl, planes, n)
-    if key not in _OCCUPANCY:
-        stages = ctypes.c_int(0)
-        active = (ctypes.c_int * MAX_CLUSTER)()
-        with torch.cuda.device(device):
-            err = lib.nfa_ladder_tiles_occupancy(
-                kp1, lvl, planes, n, ctypes.addressof(stages),
-                ctypes.addressof(active))
-        if err:
-            raise RuntimeError(f"ladder_tiles occupancy query failed: CUDA "
-                               f"error {err}")
-        _OCCUPANCY[key] = (stages.value, tuple(active))
-    return _OCCUPANCY[key]
-
-
 def blind_rotate_fused(acc: torch.Tensor, a_rots: torch.Tensor,
                        ggsw_i8: torch.Tensor, base_log: int) -> torch.Tensor:
     """All blind-rotate CMux steps in one launch, batch tile outer.
@@ -145,9 +94,8 @@ def blind_rotate_fused(acc: torch.Tensor, a_rots: torch.Tensor,
     (n_steps, ...) rotation amounts per step; ggsw_i8 int8
     (n_steps, lvl, k+1, k+1, P, 2N), BootstrapKey.ggsw_i8 as stored.  A
     CUDA tensor launches the Hopper kernel once per range of
-    ``batch_chunks`` (counted in ``blind_rotate_fused.launches``; the last
-    launch's cluster plan and ring stages in ``blind_rotate_fused.plan``;
-    it needs N % 128 == 0); a CPU tensor takes the plain version.  An empty
+    ``batch_chunks`` (counted in ``blind_rotate_fused.launches``; it needs
+    N % 128 == 0); a CPU tensor takes the plain version.  An empty
     batch returns an empty tensor and launches nothing."""
     if ggsw_i8.dim() != 6:
         raise ValueError("ggsw_i8 must be (n_steps, lvl, k+1, k+1, P, 2N)")
@@ -168,24 +116,19 @@ def blind_rotate_fused(acc: torch.Tensor, a_rots: torch.Tensor,
     kdim = lvl * kp1 * n
     chunks = batch_chunks(b, kdim)
     dig = digit_scratch(chunks[0][1], kdim, flat.device)
-    lib = TILES_LIB.load()
-    stages, active = _occupancy(lib, flat.device, kp1, lvl, planes, n)
     for start, stop in chunks:
-        row_tiles = -(-(stop - start) // KTILE)
-        cluster, clusters = plan_clusters(row_tiles, kp1 * n // 64, active)
         part = rots[:, start:stop].contiguous()   # no copy for one chunk
-        launch(lib.nfa_ladder_tiles, "ladder_tiles", flat.device,
-               flat[start].data_ptr(), part.data_ptr(), ggsw_i8.data_ptr(),
-               out[start].data_ptr(), dig.data_ptr(), stop - start, kp1,
-               lvl, planes, n, base_log, n_steps, cluster, clusters)
+        counter = torch.zeros(1, dtype=torch.int32, device=flat.device)
+        launch(TILES_LIB.load().nfa_ladder_tiles, "ladder_tiles",
+               flat.device, flat[start].data_ptr(), part.data_ptr(),
+               ggsw_i8.data_ptr(), out[start].data_ptr(), dig.data_ptr(),
+               counter.data_ptr(), stop - start, kp1, lvl, planes, n,
+               base_log, n_steps)
         blind_rotate_fused.launches += 1
-        blind_rotate_fused.plan = {"cluster": cluster, "clusters": clusters,
-                                   "row_tiles": row_tiles, "stages": stages}
     return out.reshape(acc.shape)
 
 
 blind_rotate_fused.launches = 0
-blind_rotate_fused.plan = None
 
 
 def blind_rotate_fused_steps(acc: torch.Tensor, a_rots: torch.Tensor,

@@ -11,23 +11,20 @@ part of the shared body (``csrc/cmux_common.cuh``) switched off or changed,
 and times each at TFHE_BOOT_128_K4, batch 4096, by CUDA events, in turns.
 Parts switched off: the digit phase of the consumer warps or of all warps,
 or its loads of the rotated accumulator; the CMux epilogue, or only its
-loads of the accumulator, or only its stores; the wgmma instructions; K5's
-TMA loads of the B tiles; the on-chip Toeplitz expansion of K1 and K4; K4's
-TMA loads of the A tiles (what a multicast of A across a cluster could save
-at most), its table reloads at each step and output component, the fill of
-the tables' wraps, or its cluster barriers. Changed: K4 with two table
-buffers and 3 stages in place of one and 4, with other register splits, or
-in the body's grid mode (one persistent grid that meets at K1's and K5's
-counter barrier). The ablated kernels compute wrong results; only their
-times mean anything: base minus ablated is what the part costs where it is
-not hidden behind the others. The copies go to build/ablation/ (ignored by
-git). Prints the card's name and power limit, then one JSON object per
-kernel: milliseconds per step, two rounds each.
+loads of the accumulator, or only its stores; the wgmma instructions; K1's
+and K4's waits at the grid barriers; K5's TMA loads of the B tiles; the on-chip
+Toeplitz expansion of K1 and K4; K4's TMA loads of the A tiles (what a
+multicast of A across a cluster could save at most), its table reloads at
+each step and output component, or the 16-byte copies of the tables'
+wraps. Changed: K4 with other register splits. The ablated kernels compute
+wrong results; only their times mean anything: base minus ablated is what
+the part costs where it is not hidden behind the others. The copies go to
+build/ablation/ (ignored by git). Prints the card's name and power limit,
+then one JSON object per kernel: milliseconds per step, two rounds each.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
 import os
@@ -50,14 +47,14 @@ DIG_PRODUCER = "      digit_rows<4>(s ? h.out : h.acc,"
 ROT_LO = "const uint4 lo = *reinterpret_cast<const uint4*>(a + (p0 & ~3u));"
 ROT_HI = """const uint4 hi =
             *reinterpret_cast<const uint4*>(a + ((p0 + 4u) & (n - 4u)));"""
-ARRIVE = 'asm volatile("barrier.cluster.arrive;" ::: "memory");'
-WAIT = 'asm volatile("barrier.cluster.wait;" ::: "memory");'
-# K4 in the body's grid mode: one persistent grid of single-block clusters
-# that meets at the counter barrier of K1 and K5 (a counter argument added)
-GRID = "K4 with a grid barrier in place of the cluster barriers"
-BODY = "cmux_hopper_body<P, true, true, kTabBufs>(smem_raw"
-TABS = "constexpr int kTabBufs = 1;"
-WRAPS = "for (int i = pt; i < 2 * ntab; i += kWgThreads) {"
+# every wait at a grid barrier returns at once (the arrivals stay).  Not for
+# K5: its producer threads other than the first do not wait on the ring, so
+# without the waits they run steps ahead and their arrivals at the block's
+# named barrier fall out of step with the consumers' (the kernel hangs).
+NO_WAIT = {"if (v >= target) break;": "break;"}
+WRAP_TX = "static_cast<uint32_t>(ntab) * hs);"
+WRAP_HEAD = "bulk_load(dst, src + two_n - kWrap, kWrap, tab_bar);"
+WRAP_TAIL = "bulk_load(dst + kWrap + two_n, src, kWrap, tab_bar);"
 EXP = "expand_b_tile<P>(st + kATileBytes"
 A_TX = "mbar_expect_tx_only(&full[stage], kATileBytes);"
 # setmaxnreg of the consumers and of the producer when it expands B (the sum
@@ -65,10 +62,10 @@ A_TX = "mbar_expect_tx_only(&full[stage], kATileBytes);"
 REG_C = '"n"(kExpand ? 208'
 REG_P = '"n"(kExpand ? 88'
 A_LOAD = "tma_load(st, map_a, &full[stage], kc * kChunk, rt * kTileM);"
-RELOAD = """if (kExpand && kTabBufs == 1 && (jp != cur_jp || s != cur_s))
+RELOAD = """if (kExpand && (jp != cur_jp || (kStepKeys && s != cur_s)))
           load_tables(s, jp);"""
-PREFETCH = """if (kExpand && kTabBufs == 1 && t0 < t1)
-          load_tables(s + 1, first_jp);"""
+PREFETCH = """if (kStepKeys && s + 1 < h.n_steps && t0 < t1)
+        load_tables(s + 1, first_jp);"""
 B_LOAD = """mbar_expect_tx(&full[stage], sb);
               tma_load(st + kATileBytes, map_b, &full[stage], kc * kChunk,
                        s * kp1 * P * n + ct * 64 * P);"""
@@ -94,6 +91,7 @@ ABLATIONS = {
                          DIG_PRODUCER: "if (0) " + DIG_PRODUCER}),
     "K1 without the epilogue": ("cmux_step.cu", {EPI: EPI_OFF + EPI}),
     "K1 without wgmma": ("cmux_step.cu", {MMA: ";"}),
+    "K1 without the grid barrier's wait": ("cmux_step.cu", NO_WAIT),
     "K1 without the Toeplitz expansion": (
         "cmux_step.cu", {EXP: "if (0) " + EXP}),
     "K4": ("ladder_tiles.cu", {}),
@@ -120,25 +118,17 @@ ABLATIONS = {
         "ladder_tiles.cu", {REG_C: REG_C.replace("208", "200"),
                             REG_P: REG_P.replace("88", "104")}),
     "K4 without wgmma": ("ladder_tiles.cu", {MMA: ";"}),
+    "K4 without the grid barriers' waits": ("ladder_tiles.cu", NO_WAIT),
     "K4 without the Toeplitz expansion": (
         "ladder_tiles.cu", {EXP: "if (0) " + EXP}),
     "K4 with one load of the tables per launch": (
         "ladder_tiles.cu", {RELOAD: "if (kExpand && cur_jp < 0) "
                                     "load_tables(s, jp);",
-                            PREFETCH: "if (0) load_tables(s + 1, first_jp);"}),
-    "K4 without the fill of the tables' wraps": (
-        "ladder_tiles.cu", {WRAPS: WRAPS.replace("2 * ntab", "0")}),
-    "K4 with two table buffers and 3 stages": (
-        "ladder_tiles.cu", {TABS: "constexpr int kTabBufs = 2;"}),
-    GRID: (
-        "ladder_tiles.cu",
-        {BODY: "cmux_hopper_body<P, true, false, kTabBufs>(smem_raw",
-         "const void* g, void* out, void* dig,":
-             "const void* g, void* out, void* dig, void* counter,",
-         "               nullptr, batch,":
-             "               static_cast<unsigned*>(counter), batch,"}),
-    "K4 without the cluster barriers": (
-        "ladder_tiles.cu", {ARRIVE: "/* no barrier */", WAIT: "/* none */"}),
+                            PREFETCH: "if (0) load_tables(s + 1, "
+                                      "first_jp);"}),
+    "K4 without the tables' 16-byte wrap copies": (
+        "ladder_tiles.cu", {WRAP_TX: "static_cast<uint32_t>(ntab) * two_n);",
+                            WRAP_HEAD: "", WRAP_TAIL: ""}),
 }
 
 
@@ -187,12 +177,8 @@ def main() -> int:
         lib = {"ladder_steps.cu": ladder.STEPS_LIB,
                "ladder_tiles.cu": ladder.TILES_LIB}.get(source,
                                                         cmux.STEP_LIB)
-        functions = dict(lib.functions)
-        if name == GRID:
-            functions["nfa_ladder_tiles"] = [ctypes.c_void_p] * 6 + \
-                [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        libs[name] = KernelLibrary(path, functions)
-    build_all(list(libs.values()) + [ladder.TILES_LIB])
+        libs[name] = KernelLibrary(path, lib.functions)
+    build_all(list(libs.values()))
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,30 +201,15 @@ def main() -> int:
     out = torch.empty_like(acc)
     dig = cmux.digit_scratch(batch, lvl * kp1 * n, dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    # K4's cluster plan, from the real kernel: every copy launches as it
-    stages, active = ladder._occupancy(ladder.TILES_LIB.load(), dev, kp1,
-                                       lvl, planes, n)
-    plan = ladder.plan_clusters(-(-batch // cmux.KTILE), kp1 * n // 64,
-                                active)
-    plan_tiles = -(-batch // cmux.KTILE) * kp1 * n // 64
-    print(json.dumps({"K4 cluster": plan[0], "clusters": plan[1],
-                      "stages": stages, "resident clusters": active}),
-          flush=True)
 
     def run(name):
         counter.zero_()
         lib = libs[name].load()
-        if name == GRID:
-            blocks = min(active[0], plan_tiles)
+        if name.startswith("K4"):
             launch(lib.nfa_ladder_tiles, name, dev, acc.data_ptr(),
                    rots.data_ptr(), g.data_ptr(), out.data_ptr(),
                    dig.data_ptr(), counter.data_ptr(), batch, kp1, lvl,
-                   planes, n, p.pbs_base_log, args.steps, 1, blocks)
-        elif name.startswith("K4"):
-            launch(lib.nfa_ladder_tiles, name, dev, acc.data_ptr(),
-                   rots.data_ptr(), g.data_ptr(), out.data_ptr(),
-                   dig.data_ptr(), batch, kp1, lvl, planes, n,
-                   p.pbs_base_log, args.steps, *plan)
+                   planes, n, p.pbs_base_log, args.steps)
         elif name.startswith("K5"):
             launch(lib.nfa_ladder_steps, name, dev, acc.data_ptr(),
                    rots.data_ptr(), kslabs.data_ptr(), out.data_ptr(),
@@ -268,6 +239,8 @@ def main() -> int:
     times = {name: [] for name in libs}
     for _ in range(2):
         for name in libs:
+            # on standard error as it goes: a kernel that hangs shows here
+            print(f"timing {name}", file=sys.stderr, flush=True)
             times[name].append(ms_per_step(name))
     for name, ms in times.items():
         print(json.dumps({"kernel": name, "ms_per_step": ms}), flush=True)

@@ -150,33 +150,16 @@ def test_empty_batch_returns_empty_without_a_launch(full):
 
 
 
-# resident clusters of 1..8 blocks of one block per SM on 132 SMs whose
-# GPCs hold whole clusters of 4 and 8 only in part
-ACTIVE = (132, 66, 44, 32, 24, 20, 16, 16)
-
-
-@pytest.mark.parametrize("row_tiles,col_tiles,want", [
-    (32, 20, (4, 32)),      # TFHE_BOOT_128_K4, batch 4096: 5 tiles a block
-    (1, 20, (7, 1)),        # 1-128 rows: 3 tiles a block, ties to 7 of 8
-    (2, 20, (7, 2)),        # 256 rows
-    (1, 32, (8, 1)),        # k=1, N=1024, 40 rows: 4 tiles a block
-    (76, 8, (8, 16)),       # more row tiles than resident clusters
-    (128, 20, (1, 128)),    # one block per row tile already fills the card
-])
-def test_plan_clusters_balances_the_busiest_block(row_tiles, col_tiles,
-                                                  want):
-    cluster, clusters = ladder.plan_clusters(row_tiles, col_tiles, ACTIVE)
-    assert (cluster, clusters) == want
-    assert clusters <= min(row_tiles, ACTIVE[cluster - 1])
-    busiest = -(-(-(-row_tiles // clusters)) * col_tiles // cluster)
-    for c, resident in enumerate(ACTIVE, start=1):
-        m = min(row_tiles, resident)
-        assert busiest <= -(-(-(-row_tiles // m)) * col_tiles // c)
-
-
-def test_plan_clusters_refuses_what_cannot_launch():
-    with pytest.raises(ValueError, match="nothing to launch"):
-        ladder.plan_clusters(0, 20, ACTIVE)
-    with pytest.raises(ValueError, match="no cluster size"):
-        ladder.plan_clusters(4, 20, (0,) * 8)
-    assert ladder.plan_clusters(4, 20, (3, 0, 0, 0, 0, 0, 0, 0)) == (1, 3)
+@pytest.mark.parametrize("steps", [0, 1])
+def test_ladders_at_zero_and_one_step(full, steps):
+    """No step returns acc; one step is one CMux step, in both ladders (the
+    card tests hold the kernels to the same counts)."""
+    acc, rots, g, slabs, _ = full
+    a, r = port_args(acc, rots[:steps])
+    gt = torch.from_numpy(g[:steps])
+    want = cmux.cmux_step(a, r[0], gt[0], BASE_LOG) if steps else a
+    for got in (ladder.blind_rotate_fused(a, r, gt, BASE_LOG),
+                ladder.blind_rotate_fused_steps(a, r, slabs[:steps],
+                                                BASE_LOG)):
+        assert got.shape == a.shape
+        assert torch.equal(got, want)
