@@ -22,8 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    against the big-integer oracle on a few rows), at the bootstrap's shapes
    (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560) and at a ragged
    batch; then, at batch 4096,
-   one CMux step through cmux_step and through cmux_step_slabs (v3, v2) on
-   a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
+   one CMux step through cmux_step and through cmux_step_slabs (v3, v2, on
+   the K-major diagonal slabs of build_diag_kslabs, built once per phase)
+   on a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
    TFHE_BOOT_128_L2-shaped row (k=1, N=1024), and cmux_step again at a
    ragged batch of 4000; the whole ladder through ladder_tiles and
    ladder_steps over all 630 rows of the committed key and over a short
@@ -195,13 +196,14 @@ def step_work(b, kp1, n, lvl, planes):
 
 
 def ptxas_summary(text):
-    """'kernel<P>: R registers, S bytes spilled' per entry function of a
-    ptxas -v log."""
+    """'P=p[ v3|v2]: R registers, S bytes spilled' per entry function of a
+    ptxas -v log (v3/v2: the tile order of the slab kernel)."""
     out, name = [], None
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"_kernelILi(\d+)E", line)
-            name = f"P={m.group(1)}" if m else "kernel"
+            m = re.search(r"_kernelILi(\d+)E(?:Lb([01])E)?", line)
+            name = (f"P={m.group(1)}" + {"1": " v3", "0": " v2"}.get(
+                m.group(2), "")) if m else "kernel"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
@@ -322,7 +324,8 @@ def main() -> int:
     for lib in libs:
         log(f"--- {lib.source.name} (nvcc {lib.info['seconds']} s)")
         log(lib.info["log"].strip())
-    for lib in (cmux.STEP_LIB, ladder.TILES_LIB, ladder.STEPS_LIB):
+    for lib in (cmux.STEP_LIB, cmux.SLABS_LIB, ladder.TILES_LIB,
+                ladder.STEPS_LIB):
         log(f"phase 1: {lib.source.name} (wgmma): "
             + "; ".join(ptxas_summary(lib.info["log"])))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -445,7 +448,7 @@ def main() -> int:
     rot = torch.randint(-4 * n, 4 * n, (BATCH,), generator=gen,
                         dtype=torch.int32, device="cuda")
     row = bsk.ggsw_i8[0]
-    slabs_row = cmux.build_diag_slabs(torch.cat([row, row], dim=-1))
+    slabs_row = cmux.build_diag_kslabs(torch.cat([row, row], dim=-1))
 
     def check_steps(label, acc, rot, row, slabs, base_log):
         want = cmux.cmux_step_reference(acc, rot, row, base_log)
@@ -471,7 +474,7 @@ def main() -> int:
     rots2 = torch.randint(-(1 << 20), 1 << 20, (short, BATCH), generator=gen,
                           dtype=torch.int32, device="cuda")
     check_steps("L2 (k=1, N=1024)", acc2, rots2[0], g2[0],
-                cmux.build_diag_slabs(torch.cat([g2[0], g2[0]], dim=-1)),
+                cmux.build_diag_kslabs(torch.cat([g2[0], g2[0]], dim=-1)),
                 pl2.pbs_base_log)
     ragged = 4000
     worse("cmux_step", check_equal(
@@ -657,7 +660,8 @@ def main() -> int:
     acc_s = eng.ring.rotate(eng._test_poly_acc(ct0.b.shape, tp),
                             (0 - eng._rotations(ct0.b))[..., None])
     rot_s = eng._rotations(ct0.a)[:, 0].contiguous()
-    slabs_s = cmux.build_diag_slabs(torch.cat([key.ggsw_i8[0]] * 2, dim=-1))
+    slabs_s = cmux.build_diag_kslabs(torch.cat([key.ggsw_i8[0]] * 2,
+                                               dim=-1))
     want_s = cmux.cmux_step(acc_s, rot_s, key.ggsw_i8[0], base_log)
     zero_counts()
     got_v = [cmux.cmux_step_slabs(acc_s, rot_s, slabs_s, base_log, variant=v)

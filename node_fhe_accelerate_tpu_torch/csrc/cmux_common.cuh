@@ -1,28 +1,19 @@
-// Device code shared by the CMux kernels of the port (cmux_step.cu,
-// cmux_step_slabs.cu, ladder_tiles.cu, ladder_steps.cu).  Every kernel
-// computes, per batch row and per blind-rotate step,
+// Device code shared by the CMux kernels of the port (cmux_step.cu K1,
+// cmux_step_slabs.cu K2/K3, ladder_tiles.cu K4, ladder_steps.cu K5).  Every
+// kernel computes, per batch row and per blind-rotate step,
 //
 //   out = acc + sum_p 256^(p+drop) * (digits(X^rot * acc - acc) x T(g~_p))
 //
-// and differs only in where the Toeplitz weights T come from and in how
-// many steps one launch runs.  Two cores:
-//
-// * the mma.sync core of the slab kernels (cmux_step_slabs.cu, K2/K3):
-//   digit_phase writes the balanced int8 gadget digits of a tile of batch
-//   rows to shared memory as dig[row][(l, j, c)], and slab_mma_phase runs
-//   mma.sync m16n8k32 s8 x s8 -> s32 against prepared diagonal slabs in
-//   device memory, W[(l, j, c), (jp, p, r)] with the column axis
-//   contiguous;
-// * the Hopper core at the end of this file (cmux_step.cu K1,
-//   ladder_tiles.cu K4, ladder_steps.cu K5): warpgroup wgmma.mma_async
-//   s8 x s8 -> s32 fed from a ring of 128-byte-swizzled shared tiles under
-//   mbarriers, a digit phase into a global row-major buffer that TMA reads
-//   back as the A operand, and an epilogue that recombines the planes in
-//   registers.  B comes by TMA from K-major slabs (K5) or is expanded on
-//   chip from the key rows as stored (K1, K4).
-//
-// Both recombine the base-256 planes mod 2^32 in registers before the
-// single store.
+// and differs only in where the Toeplitz weights T come from, in how many
+// steps one launch runs and in the order a block walks its tiles.  All of
+// them run one body, cmux_hopper_body: a digit phase into a global
+// row-major buffer that TMA reads back as the A operand, warpgroup
+// wgmma.mma_async s8 x s8 -> s32 fed from a ring of 128-byte-swizzled
+// shared tiles under mbarriers, and an epilogue that recombines the
+// base-256 planes mod 2^32 in registers before the single store.  B comes
+// by TMA from a K-major weight form in device memory (K5's per-step slabs,
+// K2/K3's diagonal slabs) or is expanded on chip from the key rows as
+// stored (K1, K4).
 
 #pragma once
 
@@ -33,260 +24,6 @@
 
 namespace nfa {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kNTiles = 4;      // 8-column MMA tiles per warp task
-constexpr int kMaxPlanes = 4;
-constexpr int kRowPad = 16;     // bytes after each digit row: spreads banks
-constexpr int kBlock = 128;     // block-Toeplitz tile edge of the slabs
-
-static __device__ __forceinline__ void mma_s8(int (&c)[4],
-                                              const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// sum_p vals[p] * 256^(p+drop) mod 2^32 over the first `planes` planes.
-static __device__ __forceinline__ uint32_t recombine(
-    const int (&vals)[kMaxPlanes], int planes, int drop) {
-  uint32_t v = 0u;
-#pragma unroll
-  for (int p = 0; p < kMaxPlanes; ++p) {
-    if (p < planes) v += static_cast<uint32_t>(vals[p]) << (8 * (p + drop));
-  }
-  return v;
-}
-
-// Digit row stride in bytes for a contraction of lvl * kp1 * n digits.
-static __host__ __device__ __forceinline__ size_t digit_row_bytes(int lvl,
-                                                                  int kp1,
-                                                                  int n) {
-  return static_cast<size_t>(lvl) * kp1 * n + kRowPad;
-}
-
-// Balanced gadget digits of X^rot * acc - acc (TorusRing.decompose) for the
-// batch rows [b0, b0 + bt): dig[row * rs + (l * kp1 + j) * n + c].  Rows at
-// or past `batch` get zero digits.  `acc` is read through a plain pointer:
-// the ladder kernels update it in place between calls.
-static __device__ __forceinline__ void digit_phase(
-    const uint32_t* acc, const int32_t* rot, int8_t* dig, int rs, int b0,
-    int bt, int batch, int kp1, int lvl, int n, int base_log) {
-  const int two_n = 2 * n;
-  const int total = lvl * base_log;
-  const uint32_t rounding = total < 32 ? (1u << (31 - total)) : 0u;
-  const int top_shift = 32 - total;
-  const uint32_t dmask = (1u << base_log) - 1u;
-  const uint32_t half = 1u << (base_log - 1);
-  for (int i = threadIdx.x; i < bt * kp1 * n; i += kThreads) {
-    const int row = i / (kp1 * n);
-    const int rem = i - row * kp1 * n;
-    const int j = rem / n;
-    const int c = rem - j * n;
-    const int b = b0 + row;
-    int8_t* drow = dig + row * rs + j * n + c;
-    if (b >= batch) {
-      for (int l = 0; l < lvl; ++l) drow[l * kp1 * n] = 0;
-      continue;
-    }
-    const uint32_t* a = acc + (static_cast<size_t>(b) * kp1 + j) * n;
-    int r = rot[b] % two_n;
-    if (r < 0) r += two_n;
-    const int idx = (c - r) & (two_n - 1);
-    const uint32_t v = idx < n ? a[idx] : 0u - a[idx - n];
-    uint32_t y = (v - a[c] + rounding) >> top_shift;
-    uint32_t carry = 0u;
-    for (int l = lvl - 1; l >= 0; --l) {
-      const uint32_t d = (y & dmask) + carry;
-      y >>= base_log;
-      carry = d >= half ? 1u : 0u;
-      drow[l * kp1 * n] = static_cast<int8_t>(
-          carry ? static_cast<int>(d) - (1 << base_log)
-                : static_cast<int>(d));
-    }
-  }
-}
-
-// Four words holding rows k..k+3 of four adjacent columns, byte-transposed
-// into four words holding one column each with k contiguous: y[e] is
-// (x[0].byte e, x[1].byte e, x[2].byte e, x[3].byte e).
-static __device__ __forceinline__ void transpose_4x4(const uint32_t (&x)[4],
-                                                     uint32_t (&y)[4]) {
-  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140);
-  const uint32_t t1 = __byte_perm(x[0], x[1], 0x7362);
-  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140);
-  const uint32_t t3 = __byte_perm(x[2], x[3], 0x7362);
-  y[0] = __byte_perm(t0, t2, 0x5410);
-  y[1] = __byte_perm(t0, t2, 0x7632);
-  y[2] = __byte_perm(t1, t3, 0x5410);
-  y[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-// Contraction of the digit tile against prepared diagonal slabs in device
-// memory (build_diag_slabs), and the CMux add.  The slabs keep the layout
-// the reference gives, W[k, (jp, p, r)] with the column axis contiguous,
-// `wide` = kp1 * P * 128 bytes per row: slab di = rt - ct + nt - 1 has rows
-// (l, j, c) with c in [0, 128), lvl * kp1 * 128 rows.
-//
-// mma.sync wants four consecutive k of one column in a B register, and the
-// slab has four consecutive columns in a word.  A thread therefore loads
-// the words of rows k..k+3 at columns 4gq..4gq+3 and transposes the 4 x 4
-// bytes in registers: that gives the B registers of four 8-column MMA tiles
-// whose column n = gq stands for slab column 4gq + e (e the tile).  The
-// permutation is undone in the epilogue, where a thread ends up holding
-// eight consecutive output columns of two rows.
-//
-// A warp task is MT 16-row tiles x RG block-rows rt x 32 columns x all
-// planes of one output component jp: the B registers serve MT tiles of
-// rows, the A registers serve RG block-rows.
-template <int MT, int RG>
-static __device__ __forceinline__ void slab_mma_phase(
-    const int8_t* dig, int rs, const int8_t* __restrict__ w,
-    const uint32_t* src, uint32_t* dst, int b0, int bt, int batch, int kp1,
-    int lvl, int planes, int n, int drop) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int nt = n / kBlock;
-  const size_t wide = static_cast<size_t>(kp1) * planes * kBlock;
-  const size_t slab_bytes = static_cast<size_t>(lvl) * kp1 * kBlock * wide;
-  const int m_groups = bt / (16 * MT);
-  const int rt_groups = (nt + RG - 1) / RG;
-  const int col_chunks = kBlock / (8 * kNTiles);
-  const int tasks = m_groups * col_chunks * kp1 * rt_groups;
-  for (int task = warp; task < tasks; task += kWarps) {
-    int t = task;
-    const int mg = t % m_groups;
-    t /= m_groups;
-    const int r0 = (t % col_chunks) * (8 * kNTiles);
-    t /= col_chunks;
-    const int jp = t % kp1;
-    const int rt0 = (t / kp1) * RG;
-    int c_frag[RG][MT][kMaxPlanes][kNTiles][4] = {};
-    const int8_t* drow = dig + (mg * MT * 16 + gq) * rs + 4 * tq;
-    const int8_t* wcol = w + static_cast<size_t>(jp) * planes * kBlock + r0 +
-                         4 * gq + static_cast<size_t>(4 * tq) * wide;
-    for (int lj = 0; lj < lvl * kp1; ++lj) {
-      for (int ct = 0; ct < nt; ++ct) {
-        for (int c0 = 0; c0 < kBlock; c0 += 32) {
-          const int q = lj * n + ct * kBlock + c0;
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const int8_t* d0 = drow + m * 16 * rs + q;
-            const int8_t* d1 = d0 + 8 * rs;
-            a[m][0] = *reinterpret_cast<const uint32_t*>(d0);
-            a[m][1] = *reinterpret_cast<const uint32_t*>(d1);
-            a[m][2] = *reinterpret_cast<const uint32_t*>(d0 + 16);
-            a[m][3] = *reinterpret_cast<const uint32_t*>(d1 + 16);
-          }
-#pragma unroll
-          for (int g = 0; g < RG; ++g) {
-            const int rt = rt0 + g;
-            if (rt >= nt) continue;
-            const int8_t* wk = wcol + (rt - ct + nt - 1) * slab_bytes +
-                               static_cast<size_t>(lj * kBlock + c0) * wide;
-#pragma unroll
-            for (int p = 0; p < kMaxPlanes; ++p) {
-              if (p < planes) {
-                const int8_t* wp = wk + p * kBlock;
-                uint32_t x[4], b_lo[4], b_hi[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                  x[i] = __ldg(
-                      reinterpret_cast<const uint32_t*>(wp + i * wide));
-                transpose_4x4(x, b_lo);
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                  x[i] = __ldg(
-                      reinterpret_cast<const uint32_t*>(wp + (16 + i) * wide));
-                transpose_4x4(x, b_hi);
-#pragma unroll
-                for (int e = 0; e < kNTiles; ++e) {
-#pragma unroll
-                  for (int m = 0; m < MT; ++m)
-                    mma_s8(c_frag[g][m][p][e], a[m], b_lo[e], b_hi[e]);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-    // Tile e, fragment column 2tq + s is slab column 4(2tq + s) + e, so the
-    // thread holds columns r0 + 8tq .. r0 + 8tq + 7 of rows gq and gq + 8.
-#pragma unroll
-    for (int g = 0; g < RG; ++g) {
-      const int rt = rt0 + g;
-      if (rt >= nt) continue;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int b = b0 + (mg * MT + m) * 16 + gq + 8 * hh;
-          if (b >= batch) continue;
-          const size_t o = (static_cast<size_t>(b) * kp1 + jp) * n +
-                           rt * kBlock + r0 + 8 * tq;
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-#pragma unroll
-            for (int e = 0; e < kNTiles; ++e) {
-              int vals[kMaxPlanes];
-#pragma unroll
-              for (int p = 0; p < kMaxPlanes; ++p)
-                vals[p] = c_frag[g][m][p][e][2 * hh + s];
-              dst[o + 4 * s + e] =
-                  src[o + 4 * s + e] + recombine(vals, planes, drop);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-// Largest tile of batch rows out of `cands` (descending, multiples of 16,
-// zero-terminated) whose digit rows fit beside `fixed` bytes in the shared
-// memory a block may opt into on the current device; 0 if none fits.
-static inline cudaError_t pick_batch_tile(size_t fixed, size_t row,
-                                          const int* cands, int* bt,
-                                          size_t* smem) {
-  int dev = 0;
-  int max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  *bt = 0;
-  for (; *cands; ++cands) {
-    if (fixed + *cands * row <= static_cast<size_t>(max_smem)) {
-      *bt = *cands;
-      break;
-    }
-  }
-  if (*bt == 0) return cudaErrorInvalidValue;
-  *smem = fixed + *bt * row;
-  return cudaSuccess;
-}
-
-static inline bool shape_ok(int batch, int kp1, int lvl, int planes, int n,
-                            int base_log) {
-  return batch > 0 && kp1 >= 1 && lvl >= 1 && n >= 32 && !(n & (n - 1)) &&
-         planes >= 1 && planes <= kMaxPlanes && base_log >= 1 &&
-         base_log <= 8;
-}
-
-
-// ---------------------------------------------------------------------------
-// Hopper core of the redesigned CMux kernels (cmux_step.cu, ladder_tiles.cu,
-// ladder_steps.cu)
-// ---------------------------------------------------------------------------
-//
 // The contraction of a tile of kTileM = 128 batch rows against 64 * P
 // output columns (64 coefficients of one output component jp, all P planes)
 // runs as `wgmma.mma_async` m64n(64P)k32 s8 x s8 -> s32, one 64-row half per
@@ -307,6 +44,7 @@ static inline bool shape_ok(int batch, int kp1, int lvl, int planes, int n,
 // is filled by a producer warpgroup and released by the consumers through
 // full/empty mbarriers in a ring of kMaxStages at most.
 
+constexpr int kMaxPlanes = 4;
 constexpr int kTileM = 128;          // batch rows of a tile: 2 x 64
 constexpr int kChunk = 128;          // K bytes of a stage
 constexpr int kWgThreads = 128;
@@ -902,14 +640,55 @@ static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
   return static_cast<size_t>(lvl) * kp1 * planes * (2 * n + 2 * kWrap);
 }
 
-// The body of the three redesigned kernels, one persistent cooperative
-// grid: for every step s, (1) all warps of all blocks write the digits of
-// every row to h.dig, and each block arrives at a grid barrier; (2) each
-// block walks a contiguous range of the tiles (128 rows x 64P columns,
-// column tile ct = jp * N/64 + coefficient block, row tile fastest): the
-// producer warpgroup fills the ring -- the A tile by TMA once the barrier
-// is complete, the B tile by TMA from the K-major slabs (kExpand = false,
-// ladder_steps.cu) or expanded on chip from the tables of a key row
+// Where a block's t-th tile lies: row tile rt and column tile ct
+// (jp * N/64 + coefficient block).  Row tiles fastest, so that consecutive
+// tiles share one column tile's weights, or column tiles fastest
+// (kColumnsFastest), so that they share one row tile's digits.
+template <bool kColumnsFastest>
+static __device__ __forceinline__ void tile_at(int t, int row_tiles,
+                                               int col_tiles, int& rt,
+                                               int& ct) {
+  if (kColumnsFastest) {
+    rt = t / col_tiles;
+    ct = t - rt * col_tiles;
+  } else {
+    ct = t / row_tiles;
+    rt = t - ct * row_tiles;
+  }
+}
+
+// The TMA coordinates (K byte, row) of stage kc's B tile for column tile ct
+// = (jp, gq) of step s.  A row of K5's per-step slabs
+// (build_all_step_kslabs) holds the whole contraction: the box is at
+// (128 kc, the tile's rows in step s).  A row of K2/K3's diagonal slabs
+// (build_diag_kslabs, kDiagSlabs) holds one 128-wide coefficient block of
+// each (l, j): stage kc is lj = (l, j) = 128 kc / N at input block
+// cb = (128 kc mod N) / 128, and the tile lies in output block-row
+// rb = gq / 2, half h = gq % 2, on diagonal di = rb - cb + N/128 - 1, whose
+// rows (jp, h) start at ((di (k+1) + jp) 2 + h) 64P.
+template <int P, bool kDiagSlabs>
+static __device__ __forceinline__ int2 b_box(int s, int kc, int ct, int n,
+                                             int kp1) {
+  if (kDiagSlabs) {
+    const int k0 = kc * kChunk;
+    const int lj = k0 / n;
+    const int cb = (k0 - lj * n) / kChunk;
+    const int jp = ct / (n / 64);
+    const int gq = ct - jp * (n / 64);
+    const int di = gq / 2 - cb + n / kChunk - 1;
+    return make_int2(lj * kChunk, ((di * kp1 + jp) * 2 + gq % 2) * 64 * P);
+  }
+  return make_int2(kc * kChunk, s * kp1 * P * n + ct * 64 * P);
+}
+
+// The body of every CMux kernel, one persistent cooperative grid: for
+// every step s, (1) all warps of all blocks write the digits of every row
+// to h.dig, and each block arrives at a grid barrier; (2) each block walks
+// a contiguous range of the tiles (128 rows x 64P columns, in the order of
+// tile_at): the producer warpgroup fills the ring -- the A tile by TMA once
+// the barrier is complete, the B tile by TMA from a K-major slab form
+// (kExpand = false: K5's per-step slabs, or K2/K3's diagonal slabs with
+// kDiagSlabs, b_box) or expanded on chip from the tables of a key row
 // (kExpand = true) -- and the two consumer warpgroups run wgmma and the
 // CMux add; (3) a second grid barrier before the next step reads the
 // accumulator.  Step 0 reads h.acc, later steps update h.out in place.
@@ -922,12 +701,17 @@ static __host__ __device__ __forceinline__ size_t table_bytes(int lvl,
 // reads step s's row at h.g + s * h.g_step, reloads them when the step or
 // jp changes, and issues the next step's first ones as soon as its last
 // expansion of the step is done.  The step key is a template argument so
-// that cmux_step.cu keeps the registers of a single row.
-template <int P, bool kExpand, bool kStepKeys = false>
+// that cmux_step.cu keeps the registers of a single row.  The B form and
+// the tile order are template arguments for the same reason.
+template <int P, bool kExpand, bool kStepKeys = false,
+          bool kDiagSlabs = false, bool kColumnsFastest = false>
 static __device__ __forceinline__ void cmux_hopper_body(
     unsigned char* smem_raw, const CUtensorMap* map_a,
     const CUtensorMap* map_b, const HopperArgs& h) {
   static_assert(kExpand || !kStepKeys, "step keys are expanded on chip");
+  static_assert(!kExpand || !kDiagSlabs, "diagonal slabs are read by TMA");
+  static_assert(!kExpand || !kColumnsFastest,
+                "the expansion reloads its tables whenever jp changes");
   const int n = h.n;
   const int kp1 = h.kp1;
   const int hs = 2 * n + 2 * kWrap;
@@ -942,7 +726,8 @@ static __device__ __forceinline__ void cmux_hopper_body(
   uint64_t* tab_bar = empty + kMaxStages;
   const int nk = h.lvl * kp1 * n / kChunk;
   const int row_tiles = (h.batch + kTileM - 1) / kTileM;
-  const int tiles = row_tiles * kp1 * (n / 64);
+  const int col_tiles = kp1 * (n / 64);
+  const int tiles = row_tiles * col_tiles;
   const unsigned nb = gridDim.x;
   const int t0 = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles /
                                   nb);
@@ -1018,8 +803,8 @@ static __device__ __forceinline__ void cmux_hopper_body(
       asm volatile("bar.arrive 3, %0;" ::"n"(kHopperThreads) : "memory");
       bool a_ready = false;
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / row_tiles;
-        const int rt = t - ct * row_tiles;
+        int rt, ct;
+        tile_at<kColumnsFastest>(t, row_tiles, col_tiles, rt, ct);
         const int jp = ct / (n / 64);
         const int gq = ct - jp * (n / 64);
         if (kExpand && (jp != cur_jp || (kStepKeys && s != cur_s)))
@@ -1046,9 +831,9 @@ static __device__ __forceinline__ void cmux_hopper_body(
             if (kExpand) {
               mbar_expect_tx_only(&full[stage], kATileBytes);
             } else {
+              const int2 at = b_box<P, kDiagSlabs>(s, kc, ct, n, kp1);
               mbar_expect_tx(&full[stage], sb);
-              tma_load(st + kATileBytes, map_b, &full[stage], kc * kChunk,
-                       s * kp1 * P * n + ct * 64 * P);
+              tma_load(st + kATileBytes, map_b, &full[stage], at.x, at.y);
             }
             tma_load(st, map_a, &full[stage], kc * kChunk, rt * kTileM);
           }
@@ -1086,8 +871,8 @@ static __device__ __forceinline__ void cmux_hopper_body(
         atomicAdd(h.counter, 1u);
       }
       for (int t = t0; t < t1; ++t) {
-        const int ct = t / row_tiles;
-        const int rt = t - ct * row_tiles;
+        int rt, ct;
+        tile_at<kColumnsFastest>(t, row_tiles, col_tiles, rt, ct);
         const int jp = ct / (n / 64);
         const TileRows rows = tile_rows(rt * kTileM + wg * 64, h.batch, kp1,
                                         n, jp, (ct - jp * (n / 64)) * 64);
@@ -1212,8 +997,9 @@ static inline cudaError_t launch_hopper(const void* fn, int planes,
 
 static inline bool hopper_shape_ok(int batch, int kp1, int lvl, int planes,
                                    int n, int base_log, int drop) {
-  return shape_ok(batch, kp1, lvl, planes, n, base_log) && n % kChunk == 0 &&
-         drop >= 0 && planes + drop <= kMaxPlanes;
+  return batch > 0 && kp1 >= 1 && lvl >= 1 && n >= kChunk &&
+         n % kChunk == 0 && !(n & (n - 1)) && planes >= 1 && drop >= 0 &&
+         planes + drop <= kMaxPlanes && base_log >= 1 && base_log <= 8;
 }
 
 }  // namespace nfa

@@ -44,8 +44,7 @@
 // and consumer roles meet it on separate paths, as setmaxnreg needs.  A
 // 128-row A tile is read 20 times per step (once per column tile) and a B
 // tile 32 times (once per row tile), ~630 MB of L2 reads a step against
-// the 1.68 GB of the mma.sync form, which read the whole step slab per
-// 32-row tile.  Clusters with multicast B loads would halve B's share;
+// the 1.68 GB of a form that reads the whole step slab per 32-row tile.  Clusters with multicast B loads would halve B's share;
 // this first wgmma form leaves them out to keep the launch a plain
 // cooperative one.
 //

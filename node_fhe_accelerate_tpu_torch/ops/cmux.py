@@ -8,16 +8,18 @@ of the ``cmux_step_pallas`` / ``cmux_step_tiles`` entries and the
 * ``cmux_step`` reads the bootstrap key's row as stored and launches
   ``csrc/cmux_step.cu`` (the reference's ``_cmux_kernel_v1``), which
   expands the Toeplitz weights on chip;
-* ``cmux_step_slabs`` reads the diagonal slabs of ``build_diag_slabs`` and
-  launches ``csrc/cmux_step_slabs.cu`` in one of two loop orders (the
-  reference's ``_cmux_kernel_v3`` and ``_cmux_kernel`` "v2").
+* ``cmux_step_slabs`` reads the diagonal slabs in the port's K-major form
+  (``build_diag_kslabs``) and launches ``csrc/cmux_step_slabs.cu`` in one
+  of two tile orders (the reference's ``_cmux_kernel_v3`` and
+  ``_cmux_kernel`` "v2").
 
 A CUDA tensor launches the kernel (built at first use, see ``_build.py``)
 or raises; only a CPU tensor takes the plain version.  The ``build_*``
 functions are plain torch on any device, as they are XLA outside every
-Pallas body in the reference; ``build_all_step_kslabs`` makes the port's
-own K-major form of the reference's rt-major slabs from the key rows,
-which the steps-outer ladder kernel reads.
+Pallas body in the reference; ``build_diag_kslabs`` and
+``build_all_step_kslabs`` make the port's own K-major forms of the
+reference's diagonal and rt-major slabs, which the kernels read (wgmma
+takes 8-bit operands only K-major).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from .i8 import i8_digit_planes_to_u32, negacyclic_toeplitz_idx
 
 __all__ = ["cmux_step", "cmux_step_reference", "cmux_step_slabs",
            "cmux_step_slabs_reference", "external_product_plain",
-           "build_diag_tiles", "build_diag_slabs", "build_rt_slabs",
+           "build_diag_tiles", "build_diag_slabs", "build_diag_kslabs",
+           "build_rt_slabs",
            "build_all_step_tiles", "build_all_step_slabs",
            "build_all_step_kslabs", "batch_chunks", "STEP_LIB",
            "SLABS_LIB"]
@@ -41,7 +44,7 @@ STEP_LIB = KernelLibrary(
     "cmux_step.cu", {"nfa_cmux_step": [_PTR] * 6 + [_INT] * 6 + [_PTR]})
 SLABS_LIB = KernelLibrary(
     "cmux_step_slabs.cu",
-    {"nfa_cmux_step_slabs": [_PTR] * 4 + [_INT] * 7 + [_PTR]})
+    {"nfa_cmux_step_slabs": [_PTR] * 6 + [_INT] * 7 + [_PTR]})
 BLOCK = 128      # block-Toeplitz tile edge of the prepared weights
 KTILE = 128      # batch rows of a tile of the wgmma kernels
 
@@ -102,6 +105,27 @@ def build_diag_slabs(ghat2: torch.Tensor) -> torch.Tensor:
     of the external product is sum_ct X_ct @ W[rt - ct + nt - 1] with X_ct
     the digits (batch, (l, j, c)) at coefficient block ct."""
     return _tiles_to_slabs(build_diag_tiles(ghat2))
+
+
+def build_diag_kslabs(ghat2: torch.Tensor) -> torch.Tensor:
+    """The diagonal slabs K-major, the weight form of
+    ``cmux_step_slabs`` (``csrc/cmux_step_slabs.cu``).
+
+    ghat2: int8 (lvl, k+1, k+1, P, 4N).  Returns int8
+    (D, (k+1)*P*128, lvl*(k+1)*128): per diagonal di one row per output
+    column of a 128-wide block-row, row ((jp*2 + h)*8 + q)*8P + 8p + w for
+    coefficient r = 64h + 8q + w of component jp and plane p, holding
+    column (l, j, c) of ``build_diag_slabs``' slab di:
+    kslabs[di, (jp, h, q, p, w), (l, j, c)] = slabs[di, (l, j, c), (jp, p, r)].
+    The same bytes, transposed so that the contraction index is contiguous
+    and the columns of a 64-coefficient tile grouped as
+    ``build_all_step_kslabs`` groups them."""
+    t = build_diag_tiles(ghat2)            # (l, j, jp, P, D, c, r)
+    lvl, kp1, _, planes, d = t.shape[:5]
+    t = t.reshape(lvl, kp1, kp1, planes, d, BLOCK, 2, 8, 8)
+    # -> (D, jp, h, q, P, w, l, j, c)
+    return t.permute(4, 2, 6, 7, 3, 8, 0, 1, 5).reshape(
+        d, kp1 * planes * BLOCK, lvl * kp1 * BLOCK)
 
 
 def _rt_slabs(g: torch.Tensor) -> torch.Tensor:
@@ -247,23 +271,25 @@ def cmux_step_reference(acc: torch.Tensor, rot: torch.Tensor,
 
 
 def cmux_step_slabs_reference(acc: torch.Tensor, rot: torch.Tensor,
-                              slabs: torch.Tensor, base_log: int
+                              kslabs: torch.Tensor, base_log: int
                               ) -> torch.Tensor:
-    """Plain PyTorch CMux step against the prepared diagonal slabs it is
-    given (so a wrong slab layout shows): block-row rt sums
-    X_ct @ slabs[rt - ct + nt - 1] over ct.  acc int32 (B, k+1, N), rot
-    int32 (B,), slabs int8 (2*nt-1, lvl*(k+1)*128, (k+1)*P*128)."""
+    """Plain PyTorch CMux step against the K-major diagonal slabs it is
+    given (so a wrong layout shows): block-row rb sums
+    X_cb @ kslabs[rb - cb + nt - 1]^T over cb, then takes its columns from
+    the order (jp, h, q, p, w) to (jp, p, r).  acc int32 (B, k+1, N), rot
+    int32 (B,), kslabs int8 (2*nt-1, (k+1)*P*128, lvl*(k+1)*128)."""
     b, kp1, n = acc.shape
-    _, kd, wide = slabs.shape
+    _, wide, kd = kslabs.shape
     nt = n // BLOCK
     lvl, planes = kd // (kp1 * BLOCK), wide // (kp1 * BLOCK)
     d = step_digits(acc, rot, base_log, lvl).reshape(b, lvl * kp1, nt, BLOCK)
     blocks = []
-    for rt in range(nt):
+    for rb in range(nt):
         a32 = torch.zeros((b, wide), dtype=torch.int32, device=acc.device)
-        for ct in range(nt):
-            a32 += contract_i8(d[:, :, ct].reshape(b, kd),
-                               slabs[rt - ct + nt - 1])
+        for cb in range(nt):
+            a32 += contract_i8(d[:, :, cb].reshape(b, kd),
+                               kslabs[rb - cb + nt - 1].t())
+        a32 = a32.reshape(b, kp1, 2, 8, planes, 8).permute(0, 1, 4, 2, 3, 5)
         blocks.append(a32.reshape(b, kp1, planes, BLOCK))
     return acc + recombine_planes(torch.cat(blocks, dim=-1))
 
@@ -311,9 +337,11 @@ def check_acc_rot(acc: torch.Tensor, rot: torch.Tensor, rot_shape) -> None:
 
 def check_weights(w: torch.Tensor, shape, name: str, acc: torch.Tensor
                   ) -> None:
+    """The kernels read weights by bulk copies and TMA, which need a
+    16-byte aligned base."""
     if w.dtype != torch.int8 or tuple(w.shape) != tuple(shape) \
-            or not w.is_contiguous() or w.data_ptr() % 4:
-        raise ValueError(f"{name} must be a contiguous, 4-byte aligned int8 "
+            or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned int8 "
                          f"{tuple(shape)} tensor, got {w.dtype} "
                          f"{tuple(w.shape)}")
     if w.device != acc.device:
@@ -375,42 +403,55 @@ def cmux_step(acc: torch.Tensor, rot: torch.Tensor, ggsw_i8_row: torch.Tensor,
 cmux_step.launches = 0
 
 
-def cmux_step_slabs(acc: torch.Tensor, rot: torch.Tensor, slabs: torch.Tensor,
-                    base_log: int, variant: str = "v3") -> torch.Tensor:
+def cmux_step_slabs(acc: torch.Tensor, rot: torch.Tensor,
+                    kslabs: torch.Tensor, base_log: int,
+                    variant: str = "v3") -> torch.Tensor:
     """The same CMux step against prepared diagonal slabs.
 
-    acc int32 (B, k+1, N); rot int32 (B,); slabs int8
-    (2*nt-1, lvl*(k+1)*128, (k+1)*P*128) from ``build_diag_slabs``, read
-    from device memory.  ``variant`` picks the loop order of the kernel:
-    "v3" digit-stationary, "v2" output-stationary; the result is the same
-    bit for bit.  A CUDA tensor launches the Hopper kernel (counted per
-    variant in ``cmux_step_slabs.launches``); a CPU tensor takes the plain
-    version."""
+    acc int32 (B, k+1, N); rot int32 (B,); kslabs int8
+    (2*nt-1, (k+1)*P*128, lvl*(k+1)*128), 16-byte aligned, the port's
+    K-major form from ``build_diag_kslabs`` (not the reference's
+    ``build_diag_slabs``, which holds the same bytes transposed: when
+    lvl == P the two have one shape, and the plain version contracts
+    against whatever it is given).  ``variant`` picks the order in which
+    the kernel walks its tiles: "v3" digit-stationary, "v2"
+    output-stationary; the result is the same bit for bit.  A CUDA tensor
+    launches the Hopper kernel once per range of ``batch_chunks`` (counted
+    per variant in ``cmux_step_slabs.launches``); a CPU tensor takes the
+    plain version.  An empty batch returns an empty tensor and launches
+    nothing."""
     if variant not in ("v3", "v2"):
         raise ValueError(f"unknown variant {variant!r}: 'v3' or 'v2'")
     check_acc_rot(acc, rot, acc.shape[:1])
     b, kp1, n = acc.shape
     if n % BLOCK:
         raise ValueError(f"N={n} must be a multiple of {BLOCK}")
-    if slabs.dim() != 3 or slabs.shape[1] % (kp1 * BLOCK) \
-            or slabs.shape[2] % (kp1 * BLOCK):
-        raise ValueError("slabs must be (2N/128-1, lvl*(k+1)*128, "
-                         "(k+1)*P*128)")
-    lvl = slabs.shape[1] // (kp1 * BLOCK)
-    planes = slabs.shape[2] // (kp1 * BLOCK)
-    check_weights(slabs, (2 * (n // BLOCK) - 1, lvl * kp1 * BLOCK,
-                          kp1 * planes * BLOCK), "slabs", acc)
+    if kslabs.dim() != 3 or kslabs.shape[1] % (kp1 * BLOCK) \
+            or kslabs.shape[2] % (kp1 * BLOCK):
+        raise ValueError("kslabs must be (2N/128-1, (k+1)*P*128, "
+                         "lvl*(k+1)*128)")
+    planes = kslabs.shape[1] // (kp1 * BLOCK)
+    lvl = kslabs.shape[2] // (kp1 * BLOCK)
+    check_weights(kslabs, (2 * (n // BLOCK) - 1, kp1 * planes * BLOCK,
+                           lvl * kp1 * BLOCK), "kslabs", acc)
     check_gadget(kp1, n, lvl, planes, base_log)
     if b == 0:
         return torch.empty_like(acc)
     if acc.device.type == "cpu":
-        return cmux_step_slabs_reference(acc, rot, slabs, base_log)
+        return cmux_step_slabs_reference(acc, rot, kslabs, base_log)
     out = torch.empty_like(acc)
-    launch(SLABS_LIB.load().nfa_cmux_step_slabs, f"cmux_step_slabs {variant}",
-           acc.device, acc.data_ptr(), rot.data_ptr(), slabs.data_ptr(),
-           out.data_ptr(), b, kp1, lvl, planes, n, base_log,
-           int(variant == "v3"))
-    cmux_step_slabs.launches[variant] += 1
+    kdim = lvl * kp1 * n
+    chunks = batch_chunks(b, kdim)
+    dig = digit_scratch(chunks[0][1], kdim, acc.device)
+    for start, stop in chunks:
+        counter = torch.zeros(1, dtype=torch.int32, device=acc.device)
+        launch(SLABS_LIB.load().nfa_cmux_step_slabs,
+               f"cmux_step_slabs {variant}", acc.device,
+               acc[start].data_ptr(), rot[start].data_ptr(),
+               kslabs.data_ptr(), out[start].data_ptr(), dig.data_ptr(),
+               counter.data_ptr(), stop - start, kp1, lvl, planes, n,
+               base_log, int(variant == "v3"))
+        cmux_step_slabs.launches[variant] += 1
     return out
 
 

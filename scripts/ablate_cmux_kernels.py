@@ -6,17 +6,18 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc. No profiler that reads inside a kernel runs there, so this builds,
 beside the real kernels, copies of ``csrc/cmux_step.cu`` (K1),
+``csrc/cmux_step_slabs.cu`` (K3 and K2, its two tile orders),
 ``csrc/ladder_tiles.cu`` (K4) and ``csrc/ladder_steps.cu`` (K5) with one
 part of the shared body (``csrc/cmux_common.cuh``) switched off or changed,
 and times each at TFHE_BOOT_128_K4, batch 4096, by CUDA events, in turns.
 Parts switched off: the digit phase of the consumer warps or of all warps,
 or its loads of the rotated accumulator; the CMux epilogue, or only its
 loads of the accumulator, or only its stores; the wgmma instructions; K1's
-and K4's waits at the grid barriers; K5's TMA loads of the B tiles; the on-chip
-Toeplitz expansion of K1 and K4; K4's TMA loads of the A tiles (what a
-multicast of A across a cluster could save at most), its table reloads at
-each step and output component, or the 16-byte copies of the tables'
-wraps. Changed: K4 with other register splits. The ablated kernels compute
+and K4's waits at the grid barriers; K2's, K3's and K5's TMA loads of the
+B tiles; the on-chip Toeplitz expansion of K1 and K4; K4's TMA loads of
+the A tiles (what a multicast of A across a cluster could save at most),
+its table reloads at each step and output component, or the 16-byte
+copies of the tables' wraps. Changed: K4 with other register splits. The ablated kernels compute
 wrong results; only their times mean anything: base minus ablated is what
 the part costs where it is not hidden behind the others. The copies go to
 build/ablation/ (ignored by git). Prints the card's name and power limit,
@@ -67,8 +68,8 @@ RELOAD = """if (kExpand && (jp != cur_jp || (kStepKeys && s != cur_s)))
 PREFETCH = """if (kStepKeys && s + 1 < h.n_steps && t0 < t1)
         load_tables(s + 1, first_jp);"""
 B_LOAD = """mbar_expect_tx(&full[stage], sb);
-              tma_load(st + kATileBytes, map_b, &full[stage], kc * kChunk,
-                       s * kp1 * P * n + ct * 64 * P);"""
+              tma_load(st + kATileBytes, map_b, &full[stage], at.x, at.y);"""
+B_OFF = "mbar_expect_tx(&full[stage], kATileBytes);"
 # name: (source, {text: replacement}); each text occurs once in the source
 # and its copy of the shared header together
 ABLATIONS = {
@@ -78,11 +79,15 @@ ABLATIONS = {
     "K5 without the digit phase after step 0": (
         "ladder_steps.cu", {DIG: "if (s == 0) " + DIG,
                             DIG_PRODUCER: "if (s == 0) " + DIG_PRODUCER}),
-    "K5 without the B loads": (
-        "ladder_steps.cu", {B_LOAD: "mbar_expect_tx(&full[stage], "
-                                    "kATileBytes);"}),
+    "K5 without the B loads": ("ladder_steps.cu", {B_LOAD: B_OFF}),
     "K5 without the epilogue": ("ladder_steps.cu", {EPI: EPI_OFF + EPI}),
     "K5 without wgmma": ("ladder_steps.cu", {MMA: ";"}),
+    "K3": ("cmux_step_slabs.cu", {}),
+    "K2": ("cmux_step_slabs.cu", {}),
+    "K3 without the B loads": ("cmux_step_slabs.cu", {B_LOAD: B_OFF}),
+    "K2 without the B loads": ("cmux_step_slabs.cu", {B_LOAD: B_OFF}),
+    "K3 without wgmma": ("cmux_step_slabs.cu", {MMA: ";"}),
+    "K2 without wgmma": ("cmux_step_slabs.cu", {MMA: ";"}),
     "K1": ("cmux_step.cu", {}),
     "K1 without the consumers' digit phase": (
         "cmux_step.cu", {DIG: "if (0) " + DIG}),
@@ -175,8 +180,9 @@ def main() -> int:
         with open(path, "w") as f:
             f.write(s)
         lib = {"ladder_steps.cu": ladder.STEPS_LIB,
-               "ladder_tiles.cu": ladder.TILES_LIB}.get(source,
-                                                        cmux.STEP_LIB)
+               "ladder_tiles.cu": ladder.TILES_LIB,
+               "cmux_step_slabs.cu": cmux.SLABS_LIB}.get(source,
+                                                         cmux.STEP_LIB)
         libs[name] = KernelLibrary(path, lib.functions)
     build_all(list(libs.values()))
 
@@ -198,6 +204,7 @@ def main() -> int:
     rots = torch.randint(-4 * n, 4 * n, (args.steps, batch), generator=gen,
                          dtype=torch.int32, device=dev)
     kslabs = cmux.build_all_step_kslabs(g)
+    diag = cmux.build_diag_kslabs(torch.cat([g[0], g[0]], dim=-1))
     out = torch.empty_like(acc)
     dig = cmux.digit_scratch(batch, lvl * kp1 * n, dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -210,6 +217,11 @@ def main() -> int:
                    rots.data_ptr(), g.data_ptr(), out.data_ptr(),
                    dig.data_ptr(), counter.data_ptr(), batch, kp1, lvl,
                    planes, n, p.pbs_base_log, args.steps)
+        elif name.startswith(("K2", "K3")):
+            launch(lib.nfa_cmux_step_slabs, name, dev, acc.data_ptr(),
+                   rots[0].data_ptr(), diag.data_ptr(), out.data_ptr(),
+                   dig.data_ptr(), counter.data_ptr(), batch, kp1, lvl,
+                   planes, n, p.pbs_base_log, int(name.startswith("K3")))
         elif name.startswith("K5"):
             launch(lib.nfa_ladder_steps, name, dev, acc.data_ptr(),
                    rots.data_ptr(), kslabs.data_ptr(), out.data_ptr(),

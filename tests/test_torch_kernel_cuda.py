@@ -19,7 +19,7 @@ import torch
 from node_fhe_accelerate_tpu_torch.core.bootstrap import (
     TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, TfheEngine, TfheParams)
 from node_fhe_accelerate_tpu_torch.ops.cmux import (
-    build_all_step_kslabs, build_diag_slabs, cmux_step, cmux_step_reference,
+    build_all_step_kslabs, build_diag_kslabs, cmux_step, cmux_step_reference,
     cmux_step_slabs, cmux_step_slabs_reference)
 from node_fhe_accelerate_tpu_torch.ops.ladder import (
     blind_rotate_fused, blind_rotate_fused_reference,
@@ -107,17 +107,29 @@ def test_kernel_bootstrap_matches_mxu(cuda_device):
     assert torch.equal(eng.lwe_decrypt(got, sk), msgs.to(torch.int32))
 
 
+# the slab step at every SHAPES entry, at the edges of a 128-row tile (1,
+# 127 and 129 rows at TFHE_BOOT_128_K4), and on more tiles than the card
+# has resident blocks (SMALL: 76 row tiles x 8 column tiles)
+SLAB_SHAPES = dict(
+    argvalues=SHAPES["argvalues"] + [(TFHE_BOOT_128_K4(), 1),
+                                     (TFHE_BOOT_128_K4(), 127),
+                                     (TFHE_BOOT_128_K4(), 129),
+                                     (SMALL, 32 * 300 + 5)],
+    ids=SHAPES["ids"] + ["k4_one_row", "k4_127", "k4_129",
+                         "more_tiles_than_blocks"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["v3", "v2"])
-@pytest.mark.parametrize("p,batch", **SHAPES)
+@pytest.mark.parametrize("p,batch", **SLAB_SHAPES)
 def test_slabs_kernel_matches_plain(cuda_device, p, batch, variant):
     acc, rot, row = random_step(p, batch, cuda_device, 7)
-    slabs = build_diag_slabs(torch.cat([row, row], dim=-1))
+    kslabs = build_diag_kslabs(torch.cat([row, row], dim=-1))
     before = cmux_step_slabs.launches[variant]
-    got = cmux_step_slabs(acc, rot, slabs, p.pbs_base_log, variant=variant)
+    got = cmux_step_slabs(acc, rot, kslabs, p.pbs_base_log, variant=variant)
     torch.cuda.synchronize()
     assert cmux_step_slabs.launches[variant] == before + 1
-    assert torch.equal(got, cmux_step_slabs_reference(acc, rot, slabs,
+    assert torch.equal(got, cmux_step_slabs_reference(acc, rot, kslabs,
                                                       p.pbs_base_log))
     assert torch.equal(got, cmux_step_reference(acc, rot, row,
                                                 p.pbs_base_log))
@@ -229,14 +241,19 @@ def test_redesigned_kernels_split_batches_past_the_digit_limit(
         cuda_device, monkeypatch):
     """With the digit-buffer limit lowered to two 128-row tiles at
     TFHE_BOOT_128_K4, a batch of 600 runs as three launches of cmux_step,
-    of ladder_tiles and of ladder_steps, equal to the plain versions."""
+    of each cmux_step_slabs variant, of ladder_tiles and of ladder_steps,
+    equal to the plain versions."""
     p = TFHE_BOOT_128_K4()
     kdim = p.pbs_level * (p.glwe_dim + 1) * p.poly_degree
     monkeypatch.setattr(cmux_ops, "DIGIT_BYTES_LIMIT", 256 * kdim + 1)
     acc, rots, g = random_ladder(p, 600, cuda_device, 12, steps=2)
+    kslabs = build_diag_kslabs(torch.cat([g[0], g[0]], dim=-1))
     before = (cmux_step.launches, blind_rotate_fused.launches,
-              blind_rotate_fused_steps.launches)
+              blind_rotate_fused_steps.launches,
+              dict(cmux_step_slabs.launches))
     got = cmux_step(acc, rots[0], g[0], p.pbs_base_log)
+    got_s = [cmux_step_slabs(acc, rots[0], kslabs, p.pbs_base_log,
+                             variant=v) for v in ("v3", "v2")]
     got_t = blind_rotate_fused(acc, rots, g, p.pbs_base_log)
     got_l = blind_rotate_fused_steps(acc, rots, build_all_step_kslabs(g),
                                      p.pbs_base_log)
@@ -244,8 +261,11 @@ def test_redesigned_kernels_split_batches_past_the_digit_limit(
     assert (cmux_step.launches, blind_rotate_fused.launches,
             blind_rotate_fused_steps.launches) == \
         (before[0] + 3, before[1] + 3, before[2] + 3)
-    assert torch.equal(got, cmux_step_reference(acc, rots[0], g[0],
-                                                p.pbs_base_log))
+    assert cmux_step_slabs.launches == {v: before[3][v] + 3
+                                        for v in ("v3", "v2")}
+    want = cmux_step_reference(acc, rots[0], g[0], p.pbs_base_log)
+    assert torch.equal(got, want)
+    assert all(torch.equal(x, want) for x in got_s)
     want_l = blind_rotate_fused_reference(acc, rots, g, p.pbs_base_log)
     assert torch.equal(got_t, want_l)
     assert torch.equal(got_l, want_l)
