@@ -20,8 +20,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    package's bench shapes (N=1024/B=8192, 4096/2048, 16384/512 with
    Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, and
    against the big-integer oracle on a few rows), at the bootstrap's shapes
-   (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560) and at a ragged
-   batch; then, at batch 4096,
+   (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560), at every degree
+   from N=4 to 16384 at a ragged batch, at a batch of 1, N=4 and 16384
+   over Q_60_1 and over the largest modulus they take (2^62 - 2^16 + 1),
+   and refusing the prime just above 2^62; then, at batch 4096,
    one CMux step through cmux_step and through cmux_step_slabs (v3, v2, on
    the K-major diagonal slabs of build_diag_kslabs, built once per phase)
    on a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
@@ -68,6 +70,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    t_hat is tampered;
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
+   the NTT kernels as device time of back-to-back launches, a spin kernel
+   holding the stream while the host enqueues them, and their bound as
+   the least modular products the transform needs, ``ntt_bound``;
    no PyTorch call computes an NTT mod q or a Montgomery product mod a
    254- or 381-bit prime, so the NTT and digit kernels have none), the key
    switch, bootstraps/s per backend, the time of one TFHE_256 "crt" step
@@ -109,9 +114,25 @@ PEAKS = {"H100 SXM": (1979e12, 3.35e12), "H100 PCIe": (1513e12, 2.0e12),
 # (CUDA C++ Programming Guide, arithmetic instruction throughput); times the
 # SM count and the card's maximum SM clock gives the INT32 multiply rate.
 INT32_MUL_PER_SM_CLK = 64
-# 32-bit multiplies of one 64-bit Montgomery product: the 64x64->128
-# product (8), its low half times -q^-1 (4), m*q (8).
-MONT_MULS = 20
+# FP64 fused multiply-adds per clock per SM on compute capability 9.0 (the
+# same table); times the SM count and the clock gives the FP64 rate.
+FP64_PER_SM_CLK = 64
+
+
+# The least exact modular product I know of, per modulus: 2 L^2 32-bit
+# multiplies for an L-limb modulus (L = 2 for the NTT moduli, 33 to 62
+# bits: the product of two L-limb residues, L^2 32 x 32 -> 64 partial
+# products of two multiplies each, reduced by shifts and adds, every NTT
+# modulus here being 2^a - 2^b + 1), and below 2^46 also 6 FP64 operations
+# on the FP64 pipes (csrc/ntt.cu's narrow form), which can run beside the
+# integer ones.  The kernels' wide form takes about 15 multiplies.
+def modmul_rate(q, mul_rate, fp64_rate):
+    """Modular products per second with both pipes at their least work."""
+    limbs = -(-q.bit_length() // 32)
+    return (mul_rate / (2 * limbs * limbs)
+            + (fp64_rate / 6 if q < 1 << 46 else 0))
+
+
 MSM_N = 4096             # the JAX suite's msm_bn254_4096 row
 MSM_BLS_N = 1024
 BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
@@ -135,20 +156,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(macs, nbytes, peak_ops, peak_bytes):
     """Least time in ms for `macs` int8 MACs (2 ops each) at the int8 peak
     and `nbytes` at the memory rate; the larger wins."""
@@ -157,19 +164,22 @@ def bound(macs, nbytes, peak_ops, peak_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def ntt_bound(kind, b, n, mul_rate, peak_bytes):
-    """(ms, bound_by) of one NTT launch over b polynomials of degree n:
-    its 32-bit multiplies at the INT32 rate against its bytes (each input
-    plane read once, each output plane written once) at the memory rate."""
+def ntt_bound(kind, b, n, q, mul_rate, fp64_rate, peak_bytes):
+    """(ms, bound_by) of one NTT launch over b polynomials of degree n mod
+    q: the modular products the function needs at ``modmul_rate`` against
+    its bytes (each input plane read once, each output plane written once)
+    at the memory rate.  Products: (n/2) log n butterflies a forward; an
+    inverse adds n/2 for the N^-1 scale folded into its last stage; the
+    ring product is two forwards, n pointwise products and an inverse."""
     logn = n.bit_length() - 1
     butterflies = b * (n // 2) * logn
     if kind == "forward":
-        monts, nbytes = butterflies, 16 * b * n
+        products, nbytes = butterflies, 16 * b * n
     elif kind == "inverse":
-        monts, nbytes = butterflies + b * n, 16 * b * n
-    else:   # two forwards, the pointwise product (2), inverse, scale
-        monts, nbytes = 3 * butterflies + 3 * b * n, 24 * b * n
-    t_ops = MONT_MULS * monts / mul_rate
+        products, nbytes = butterflies + b * n // 2, 16 * b * n
+    else:
+        products, nbytes = 3 * butterflies + 3 * b * n // 2, 24 * b * n
+    t_ops = products / modmul_rate(q, mul_rate, fp64_rate)
     t_bytes = nbytes / peak_bytes
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -195,22 +205,43 @@ def step_work(b, kp1, n, lvl, planes):
             2 * b * kp1 * n * 4 + b * 4)
 
 
-def ptxas_summary(text):
-    """'P=p[ v3|v2]: R registers, S bytes spilled' per entry function of a
-    ptxas -v log (v3/v2: the tile order of the slab kernel)."""
-    out, name = [], None
+def cmux_entry(line):
+    """'P=p[ v3|v2]' of a CMux kernel's entry (v3/v2: the tile order of
+    the slab kernel)."""
+    m = re.search(r"_kernelILi(\d+)E(?:Lb([01])E)?", line)
+    return (f"P={m.group(1)}" + {"1": " v3", "0": " v2"}.get(m.group(2), "")
+            if m else "kernel")
+
+
+def ntt_entry(line):
+    """'forward|inverse|mul log N [f64|shoup]' of an entry of csrc/ntt.cu
+    (the arithmetic form)."""
+    m = re.search(r"ntt_(transform|negacyclic_mul)_kernelILi(\d+)E"
+                  r"(?:Lb([01])E(?:\w*?(F64|Shoup)Arith)?)?", line)
+    if not m:
+        return None
+    kind = ("mul" if m.group(1) == "negacyclic_mul" else
+            "inverse" if m.group(3) == "1" else "forward")
+    return (f"{kind} {m.group(2)}"
+            + {"F64": " f64", "Shoup": " shoup"}.get(m.group(4), ""))
+
+
+def ptxas_summary(text, entry=cmux_entry):
+    """'<entry>: R registers, S bytes spilled, F bytes stack' per entry
+    function of a ptxas -v log, named by ``entry`` (a stack frame means
+    values left the registers)."""
+    out, name, stack, spill = [], None, 0, 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"_kernelILi(\d+)E(?:Lb([01])E)?", line)
-            name = (f"P={m.group(1)}" + {"1": " v3", "0": " v2"}.get(
-                m.group(2), "")) if m else "kernel"
-        m = re.search(r"(\d+) bytes spill stores", line)
+            name = entry(line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if m and name:
-            spill = int(m.group(1))
+            stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
-                       "spilled")
+                       f"spilled, {stack} bytes stack")
             name = None
     return out
 
@@ -290,6 +321,8 @@ def main() -> int:
     from node_fhe_accelerate_tpu_torch.ops import digits as dg
     from node_fhe_accelerate_tpu_torch.ops import digits_pallas as dp
     from node_fhe_accelerate_tpu_torch.ops.limbs import limbs_from_ints
+    from node_fhe_accelerate_tpu_torch.timing import (cuda_ms, device_ms,
+                                                      max_sm_mhz)
     from node_fhe_accelerate_tpu_torch.zk.bulletproofs import (
         BulletproofsGens, BulletproofsProver, BulletproofsVerifier)
     from node_fhe_accelerate_tpu_torch.zk.curve import (bls12_381_g1,
@@ -303,17 +336,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
-    max_sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
+    sm_mhz = max_sm_mhz()
     name = torch.cuda.get_device_name(0)
     peak_ops, peak_bytes = PEAKS[variant(name)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mul_rate = INT32_MUL_PER_SM_CLK * sms * max_sm_mhz * 1e6
+    mul_rate = INT32_MUL_PER_SM_CLK * sms * sm_mhz * 1e6
+    fp64_rate = FP64_PER_SM_CLK * sms * sm_mhz * 1e6
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} card {name} ({variant(name)} peaks); "
-        f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: {mul_rate:.4e} 32-bit "
+        f"{sms} SMs at up to {sm_mhz:.0f} MHz: {mul_rate:.4e} 32-bit "
         "integer multiplies/s")
     libs = [cmux.STEP_LIB, cmux.SLABS_LIB, ladder.TILES_LIB, ladder.STEPS_LIB,
             NTT_LIB, dp.DIGITS_LIB]
@@ -328,6 +359,9 @@ def main() -> int:
                 ladder.STEPS_LIB):
         log(f"phase 1: {lib.source.name} (wgmma): "
             + "; ".join(ptxas_summary(lib.info["log"])))
+    log("phase 1: ntt.cu (by log N): " + "; ".join(sorted(
+        ptxas_summary(NTT_LIB.info["log"], ntt_entry),
+        key=lambda x: (x.split()[0], int(x.split()[1].strip(":"))))))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     dev = torch.device("cuda")
     err = dict.fromkeys(["cmux_step", "v3", "v2", "ladder_tiles",
@@ -407,15 +441,31 @@ def main() -> int:
             f"{got[0].shape[0]}")
 
     q40, q60 = Primes.Q_40_1, Primes.Q_60_1
-    for label, deg, b, q in (("bench Q_40_1", 1024, 8192, q40),
-                             ("bench Q_40_1", 4096, 2048, q40),
-                             ("bench Q_40_1", 16384, 512, q40),
-                             ("bench Q_60_1", 16384, 512, q60),
-                             ("path P1", 4096, 1536, P1),
-                             ("path P2", 4096, 1536, P2),
-                             ("path P_EXT", 256, 2560, P_EXT),
-                             ("ragged P1", 4096, 24, P1),
-                             ("ragged P_EXT", 256, 24, P_EXT)):
+    # the largest NTT prime each form of the kernels' arithmetic takes
+    # (doubles below 2^46, Shoup's products below 2^62), the first of the
+    # wide form, and the smallest above 2^62, which they refuse
+    q_f64, q_wide = (1 << 46) - (1 << 38) + 1, (1 << 46) + (1 << 15) + 1
+    q_max, q_above = (1 << 62) - (1 << 16) + 1, (1 << 62) + 622593
+    shapes = [("bench Q_40_1", 1024, 8192, q40),
+              ("bench Q_40_1", 4096, 2048, q40),
+              ("bench Q_40_1", 16384, 512, q40),
+              ("bench Q_60_1", 16384, 512, q60),
+              ("path P1", 4096, 1536, P1),
+              ("path P2", 4096, 1536, P2),
+              ("path P_EXT", 256, 2560, P_EXT),
+              ("ragged P1", 4096, 24, P1),
+              ("ragged P_EXT", 256, 24, P_EXT),
+              ("batch 1 P1", 4096, 1, P1),
+              ("Q_60_1", 4, 7, q60),
+              ("Q_60_1", 16384, 3, q60),
+              ("largest q", 1024, 17, q_max),
+              ("largest q", 16384, 3, q_max),
+              ("largest q of the doubles", 16384, 3, q_f64),
+              ("smallest q of the wide form", 1024, 17, q_wide)]
+    # every degree the kernels take, at a ragged batch
+    shapes += [("every degree", 1 << lg, 3 + 2 * lg,
+                (q40, P2, q60, P_EXT, q_max)[lg % 5]) for lg in range(2, 15)]
+    for label, deg, b, q in shapes:
         pk, a = pntt(deg, q), rand_planes(b, deg, q)
         fa = pk.forward(a)
         check_planes(f"ntt forward {label} N={deg}", fa, pk.ntt.forward(a))
@@ -424,8 +474,19 @@ def main() -> int:
                      pk.ntt.inverse(fa))
         check_planes(f"ntt inverse(forward) {label} N={deg} == input", back,
                      a)
+    pk = pntt(1024, q_above)
+    for entry in (pk.forward, pk.inverse):
+        try:
+            entry(rand_planes(2, 1024, q_above))
+        except ValueError:
+            continue
+        raise AssertionError("ntt: q above 2^62 was not refused")
+    log("phase 2 ntt: q = 2^62 + 622593 refused (ValueError)")
     for label, deg, b, q in (("bench Q_40_1", 1024, 2048, q40),
-                             ("ragged P1", 4096, 24, P1)):
+                             ("ragged P1", 4096, 24, P1),
+                             ("Q_60_1", 4, 7, q60),
+                             ("path P_EXT", 256, 37, P_EXT),
+                             ("largest degree Q_40_1", 8192, 3, q40)):
         pk = pntt(deg, q)
         a, c = rand_planes(b, deg, q), rand_planes(b, deg, q)
         got = pk.negacyclic_mul(a, c)
@@ -976,7 +1037,6 @@ def main() -> int:
     kp256 = p256.glwe_dim + 1
     fwd_b = p256.pbs_level * TFHE256_BATCH * kp256
     inv_b = TFHE256_BATCH * kp256
-    ntt_rows = []
 
     def time_ntt(kind, n, b, q, label):
         pk = pntt(n, q)
@@ -987,13 +1047,16 @@ def main() -> int:
         else:
             run = lambda: getattr(pk, kind)(a)
             plain = lambda: getattr(pk.ntt, kind)(a)
-        ms = cuda_ms(run, 20)
+        ms, host_ms = device_ms(run, 20)
+        with_host = cuda_ms(run, 20)
         plain_ms = cuda_ms(plain, 2, warmup=1)
-        b_ms, b_by = ntt_bound(kind, b, n, mul_rate, peak_bytes)
-        ntt_rows.append((kind, label, n, b, ms, plain_ms, b_ms, b_by))
-        log(f"phase 5: ntt {kind} {label} N={n} B={b}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            "library none (no PyTorch call computes an NTT mod q)")
+        b_ms, b_by = ntt_bound(kind, b, n, q, mul_rate, fp64_rate,
+                               peak_bytes)
+        log(f"phase 5: ntt {kind} {label} N={n} B={b}: kernel {ms:.4f} ms "
+            f"(back to back; {with_host:.4f} ms a call with the host's "
+            f"wrapper in between, which takes {host_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none "
+            "(no PyTorch call computes an NTT mod q)")
         return ms, plain_ms, (b_ms, b_by), None
 
     times["ntt_forward"] = time_ntt("forward", 4096, fwd_b, P1,
@@ -1077,12 +1140,15 @@ def main() -> int:
                 run = lambda: dp.pallas_field_mul(f, a, c)
                 plain = lambda: dp.field_mul_reference(f, a, c)
             ms = cuda_ms(run, 20)
+            back_ms, host_ms = device_ms(run, 20)
             plain_ms = cuda_ms(plain, 3, warmup=1)
             b_ms, b_by = digits_bound(f.n_limbs, b, mul_rate, peak_bytes)
             digit_times[kind, f.n_limbs, b] = (ms, plain_ms, (b_ms, b_by),
                                                None)
             log(f"phase 5: digits {kind} D={f.n_limbs} B={b}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"{ms:.4f} ms a call ({back_ms:.4f} ms back to back; the "
+                f"host's wrapper takes {host_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}), library none (no PyTorch call computes a "
                 "Montgomery product mod a 254- or 381-bit prime)")
     times["digits_mul_t"] = digit_times["mul_t", 32, 131072]

@@ -5,51 +5,83 @@
 //   * K6 `_make_transform(inverse=False)` (pallas_call at :179; body
 //     `_forward_body` :149, `_fwd_stage` :125): all log N Cooley-Tukey
 //     stages, natural order in, bit-reversed out -> `ntt_transform_kernel`
-//     with inverse = 0;
+//     <LOGN, false>;
 //   * K7 `_make_transform(inverse=True)` (`_inverse_body` :154, `_inv_stage`
 //     :137): Gentleman-Sande stages, then the N^-1 scale -> the same kernel
-//     with inverse = 1;
+//     <LOGN, true>, the scale folded into the last stage;
 //   * K8 `_make_negacyclic_mul` (pallas_call at :227, kernel :203):
 //     forward(a), forward(b), the pointwise product, inverse, in one launch
-//     -> `ntt_negacyclic_mul_kernel`.
+//     -> `ntt_negacyclic_mul_kernel`, on the same passes.
 //
-// Arithmetic.  Values are canonical residues mod an odd q < 2^63, held as
-// native u64 (the TPU needs uint32 limb planes; this card has 64-bit
-// integer multiplies through `__umul64hi`).  Twiddles are pre-scaled by
-// R = 2^64 (w R mod q), so one Montgomery product gives v w mod q exactly:
-// t = v (wR), m = (t mod 2^64)(-q^-1) mod 2^64, r = (t + m q) / 2^64 < 2q,
-// and one conditional subtraction ends canonical.  K8's pointwise product
-// is the plain product mont(mont(a, b), R^2 mod q) = a b mod q.  Every
-// result is the canonical residue, so the bits equal the limb-plane
-// reductions of ops/modular.py whatever path they take.
+// Arithmetic, in two forms picked by the modulus (q odd, q < 2^62); every
+// store subtracts down to the canonical residue, so the bits equal the
+// limb-plane reductions of ops/modular.py whatever the form.
+//   * The narrow form, q < 2^46 (P1 and P2 of the TFHE_256 "crt" path):
+//     integers held exactly in doubles, on the FP64 pipes (`F64Arith`).  A
+//     product y w is 6 FP64 operations and no integer multiply: h = y w
+//     rounded, l = fma(y, w, -h) exactly, Q = round(h / q) by one fma at
+//     1.5 2^52, and y w - Q q = fma(-Q, q, h) + l exactly, at most 0.75 q
+//     in size.  The forward needs no correction (values stay below 12 q <
+//     2^50 for 14 stages): 8 FP64 operations a butterfly.
+//   * The wide form, q < 2^62 (P_EXT, Q_60_1): u64 values, Shoup's product
+//     with the quotient w' = floor(w 2^64 / q) of each twiddle, y w - hi64(y
+//     w') q mod 2^64 in [0, 2q): about 15 32-bit multiplies (7 for the high
+//     half, 4 for each low half) where the first form's Montgomery product
+//     took about 20.  Harvey's lazy butterflies keep the forward in [0, 4q)
+//     with one conditional subtraction of 2q, the inverse in [0, 2q).
+// The inverse folds N^-1 into its last stage: the sum output is multiplied
+// by N^-1, the difference output by psi^-bitrev(1) N^-1 (kernel arguments).
+// K8 multiplies pointwise by Montgomery's product (both factors vary), in
+// the wide form, which leaves a factor 2^-64 its folded constants take back.
 //
 // What bounds it.  A transform of B polynomials reads and writes two uint32
-// planes: 16 B N bytes.  It runs (N/2) log N butterflies per polynomial,
-// each one Montgomery product of about 20 32-bit multiplies (a 64x64->128
-// product is 8, the low product by -q^-1 4, m q 8).  At the path's shapes
-// (N = 4096, B = 1536: 100.7 MB against 7.5e8 multiplies) the multiplies
-// take longer than the bytes on an H100, so the bound is operations; at
-// N = 256 the two are close.
+// planes: 16 B N bytes.  It runs (N/2) log N butterflies a polynomial, each
+// one modular product; the least work for one that I know of is 8 32-bit
+// multiplies for a modulus of two 32-bit limbs (the 64 x 64 -> 128
+// product; this repo's moduli, 2^a - 2^b + 1, reduce by shifts and adds),
+// or 6 FP64 operations below 2^46 on the other pipes.  At the path's
+// shapes (N = 4096, B = 1536: 100.7 MB against 3.8e7 products) the bytes
+// bound it on an H100; the exchanges, the index arithmetic and the
+// corrections run on the integer pipes beside the products.
 //
-// Design (a first form that is right and simple).  The TPU kernel keeps a
-// batch tile in VMEM and uses full-width (log N, N) twiddle vectors and lane
-// rolls, so every lane runs a Montgomery product at every stage: twice the
-// butterfly's products.  Here a thread indexes its butterfly pair directly:
-// N/2 products per stage, from the compact psi^bitrev tables of NTTContext
-// (N u64 per direction; stage s reads entries [m, 2m)).
-//   * A block holds `per_block` whole polynomials as u64 in shared memory
-//     (1 for N >= 2048, 2048/N below), 32 KB at N = 4096 and 128 KB at
-//     N = 16384 (dynamic shared memory above 48 KB); K8 holds a and b,
-//     64 KB at N = 4096.  The two int32 planes are read once, combined into
-//     u64, and written once.
-//   * Every thread walks the block's butterflies of a stage with a stride;
-//     `__syncthreads()` between stages.  Any batch B >= 1: the last block
-//     takes what is left.
-//   * No bit-reversal permutation: the CT/GS pairing absorbs it.
-// Largest N: 16384 for the transforms, 8192 for K8 (two polynomials in
-// 227 KB).  Later work: a register-resident radix-2^k design, warp shuffles
-// for the last stages, twiddles in shared memory, fusing the pointwise
-// accumulation of the external product.
+// Design.  The TPU kernel keeps a batch tile in VMEM and rolls full-width
+// lanes at every stage.  Here each thread holds E = 16 coefficients of one
+// polynomial in registers (E = N below N = 16) and runs up to log E stages
+// on them without touching shared memory: a pass.  A polynomial takes
+// T = N / E threads; log N = 12 is 3 passes of 4 stages with 2 exchanges
+// through shared memory (a warp barrier when T <= 32, else the block's).
+//   * Pass p holds, in thread t, the coefficients whose index bits
+//     [c_lo, c_lo + log E) vary: x = low(t) | e << c_lo | high(t) << (c_lo
+//     + log E).  The first forward pass takes the top log N mod log E bits
+//     (log E when that is 0) with the window at the top, the others log E
+//     bits each down to bit 0; the inverse runs them in reverse.  So the
+//     forward reads x = t + e T (32-bit loads, coalesced across the warp)
+//     and ends holding 16 consecutive coefficients, which it stores
+//     through the exchange buffer, 4 of them a 128-bit store at x = 4 (t +
+//     k T), so that each warp writes 512 contiguous bytes; the inverse
+//     reads 16 consecutive coefficients a thread (128-bit loads) and
+//     stores x = t + e T straight from registers (coalesced).  On an H100
+//     80GB HBM3 at 700 W (scripts/ablate_ntt_kernels.py), a copy with the
+//     forward's loads and its stores straight from registers (16-byte
+//     pieces at a 64-byte stride) took 38% longer than with them staged;
+//     the inverse took 10% longer with its stores staged.
+//   * The exchange stores coefficient x at x ^ ((x >> 4) & 15) (u64
+//     words): every pass's reads and writes then hit 16 distinct bank
+//     pairs in each half-warp (N >= 256).
+//   * The twiddles: the host lays each stage's block out in the order the
+//     threads read it (ops/ntt_pallas.py `twiddle_table`), as (w, w')
+//     pairs, one 128-bit load each; threads that share the bits above the
+//     window read one address, the last forward pass (the first inverse
+//     one) reads consecutive pairs.  The block copies the table into
+//     shared memory once (N <= 8192 for the transforms, N <= 4096 for K8;
+//     above, it is read from global memory through the caches).
+//   * A persistent grid (blocks as many as fit, at most one per group of
+//     polynomials) walks the batch; each thread loads the next
+//     polynomial's coefficients into registers while it transforms this
+//     one (N <= 8192), so the bytes arrive under the butterflies.
+// Largest N: 16384 for the transforms, 8192 for K8 (a and b in shared
+// memory); q below 2^62 (the entries return cudaErrorInvalidValue above).
+// Later work: fusing the pointwise accumulation of the external product.
 
 #include <cstdint>
 
@@ -59,234 +91,705 @@ namespace {
 
 using u64 = unsigned long long;
 
-constexpr int kMaxThreads = 1024;
-constexpr int kBlockElems = 2048;   // coefficients per block below N = 2048
 constexpr int kMinLogN = 2;
 constexpr int kMaxLogN = 14;
+constexpr int kMaxLogNMul = 13;
+constexpr u64 kMaxQ = 1ull << 62;
 
+template <int LOGN>
+struct Geom {
+  static constexpr int kN = 1 << LOGN;
+  static constexpr int kEb = LOGN < 4 ? LOGN : 4;   // log2 of E
+  static constexpr int kE = 1 << kEb;               // coefficients a thread
+  static constexpr int kT = kN / kE;                // threads a polynomial
+  static constexpr int kThreads = kT > 128 ? kT : 128;
+  static constexpr int kG = kThreads / kT;          // polynomials a block
+  static constexpr int kR0 = LOGN % kEb ? LOGN % kEb : kEb;
+  static constexpr int kPasses = 1 + (LOGN - kR0) / kEb;
+  // lowest window bit and stages of forward pass p
+  __host__ __device__ static constexpr int c_lo(int p) {
+    return p == 0 ? LOGN - kEb : LOGN - kR0 - p * kEb;
+  }
+  __host__ __device__ static constexpr int run(int p) {
+    return p == 0 ? kR0 : kEb;
+  }
+};
+
+// The modulus and what the two forms of the arithmetic derive from it.
+struct Mod {
+  u64 q, q2;           // q, 2q
+  double qd, qinv;     // q and 1/q rounded, for the narrow form
+};
+
+__device__ __forceinline__ u64 sub_if(u64 v, u64 m) {
+  return v >= m ? v - m : v;
+}
+
+// y w mod q in [0, 2q) for any y < 2^64 (Shoup; q < 2^63).
+__device__ __forceinline__ u64 shoup(u64 y, ulonglong2 w, u64 q) {
+  return y * w.x - __umul64hi(y, w.y) * q;
+}
+
+// a b 2^-64 mod q for a, b < q (Montgomery; qinv = -q^-1 mod 2^64).
 __device__ __forceinline__ u64 mont_mul(u64 a, u64 b, u64 q, u64 qinv) {
   const u64 lo = a * b;
   const u64 hi = __umul64hi(a, b);
   const u64 m = lo * qinv;                 // lo + m q == 0 mod 2^64
-  const u64 r = hi + __umul64hi(m, q) + (lo != 0 ? 1ull : 0ull);
-  return r >= q ? r - q : r;
+  return sub_if(hi + __umul64hi(m, q) + (lo != 0 ? 1ull : 0ull), q);
 }
 
-__device__ __forceinline__ u64 add_mod(u64 a, u64 b, u64 q) {
-  const u64 s = a + b;
-  return s >= q ? s - q : s;
+// The wide form (q < 2^62): u64 values, Shoup's products, Harvey's lazy
+// butterflies.
+struct ShoupArith {
+  using V = u64;
+  __device__ static V from_u64(u64 v) { return v; }
+  // Cooley-Tukey: x, y in [0, 4q) -> x + w y, x - w y in [0, 4q).
+  __device__ static void ct(V& x, V& y, ulonglong2 w, const Mod& m) {
+    const u64 u = sub_if(x, m.q2);
+    const u64 v = shoup(y, w, m.q);
+    x = u + v;
+    y = u - v + m.q2;
+  }
+  // Gentleman-Sande: x, y in [0, 2q) -> x + y, (x - y) w in [0, 2q).
+  __device__ static void gs(V& x, V& y, ulonglong2 w, const Mod& m) {
+    const u64 u = x, v = y;
+    x = sub_if(u + v, m.q2);
+    y = shoup(u - v + m.q2, w, m.q);
+  }
+  // The inverse's last stage with the scale folded: (x + y) c, (x - y) d.
+  __device__ static void gs_last(V& x, V& y, ulonglong2 c, ulonglong2 d,
+                                 const Mod& m) {
+    const u64 u = x, v = y;
+    x = shoup(u + v, c, m.q);
+    y = shoup(u - v + m.q2, d, m.q);
+  }
+  __device__ static u64 forward_out(V v, const Mod& m) {
+    return sub_if(sub_if(v, m.q2), m.q);
+  }
+  __device__ static u64 inverse_out(V v, const Mod& m) {
+    return sub_if(v, m.q);
+  }
+};
+
+// The narrow form (q < 2^46): values are integers held exactly in doubles,
+// on the FP64 pipes, which the integer multiplies of the wide form leave
+// idle.  A product y w is h = fl(y w) plus the exact l = fma(y, w, -h); its
+// quotient Q = round(h / q), from h (1/q) rounded at 1.5 2^52, is within 1
+// of y w / q while |y| < 2^50, so y w - Q q = fma(-Q, q, h) + l is exact
+// and at most 0.75 q in size.  The forward grows by at most 0.75 q a stage
+// (below 12 q, 2^50, after 14), so it needs no correction; the inverse
+// reduces each sum.  The stores reduce once more and add q to a negative.
+struct F64Arith {
+  using V = double;
+  static constexpr double kTwo52 = 4503599627370496.0;
+  static constexpr double kRound = 6755399441055744.0;    // 1.5 2^52
+  // v < 2^52 as a double, from its bits.
+  __device__ static V from_u64(u64 v) {
+    return __dsub_rn(__longlong_as_double(
+                         static_cast<long long>(v | 0x4330000000000000ull)),
+                     kTwo52);
+  }
+  // y w - round(y w / q) q for |y| < 2^50, w < q: |result| <= 0.75 q.
+  __device__ static V mul(V y, V w, const Mod& m) {
+    const double h = __dmul_rn(y, w);
+    const double l = __fma_rn(y, w, -h);
+    const double quot = __dsub_rn(__fma_rn(h, m.qinv, kRound), kRound);
+    return __dadd_rn(__fma_rn(-quot, m.qd, h), l);
+  }
+  // x - round(x / q) q for |x| < 2^50: |result| <= q / 2 + 1.
+  __device__ static V reduce(V x, const Mod& m) {
+    const double quot = __dsub_rn(__fma_rn(x, m.qinv, kRound), kRound);
+    return __fma_rn(-quot, m.qd, x);
+  }
+  __device__ static void ct(V& x, V& y, ulonglong2 w, const Mod& m) {
+    const double v = mul(y, from_u64(w.x), m);
+    const double u = x;
+    x = __dadd_rn(u, v);
+    y = __dsub_rn(u, v);
+  }
+  __device__ static void gs(V& x, V& y, ulonglong2 w, const Mod& m) {
+    const double u = x, v = y;
+    x = reduce(__dadd_rn(u, v), m);
+    y = mul(__dsub_rn(u, v), from_u64(w.x), m);
+  }
+  __device__ static void gs_last(V& x, V& y, ulonglong2 c, ulonglong2 d,
+                                 const Mod& m) {
+    const double u = x, v = y;
+    x = mul(__dadd_rn(u, v), from_u64(c.x), m);
+    y = mul(__dsub_rn(u, v), from_u64(d.x), m);
+  }
+  // The canonical residue of x as u64.
+  __device__ static u64 forward_out(V x, const Mod& m) {
+    double r = reduce(x, m);
+    if (r < 0) r = __dadd_rn(r, m.qd);
+    return static_cast<u64>(__double_as_longlong(__dadd_rn(r, kTwo52))) &
+           ((1ull << 52) - 1);
+  }
+  __device__ static u64 inverse_out(V x, const Mod& m) {
+    return forward_out(x, m);
+  }
+};
+
+// Index of coefficient e of thread t in a pass whose window starts at c_lo.
+template <int LOGN>
+__device__ __forceinline__ int coeff(int t, int e, int c_lo) {
+  return (t & ((1 << c_lo) - 1)) | (e << c_lo) |
+         ((t >> c_lo) << (c_lo + Geom<LOGN>::kEb));
 }
 
-__device__ __forceinline__ u64 sub_mod(u64 a, u64 b, u64 q) {
-  return a >= b ? a - b : a - b + q;
-}
+// Where coefficient x lies in the exchange buffer.
+__device__ __forceinline__ int swz(int x) { return x ^ ((x >> 4) & 15); }
 
-__device__ __forceinline__ void load(const uint32_t* __restrict__ lo,
-                                     const uint32_t* __restrict__ hi,
-                                     size_t base, int count, u64* x) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x)
-    x[e] = static_cast<u64>(lo[base + e]) |
-           (static_cast<u64>(hi[base + e]) << 32);
-}
-
-// Forward CT over `polys` polynomials of 2^logn coefficients in x.  Stage
-// s: m = 2^s groups of span t = N >> (s+1); pair (i 2t + j, i 2t + j + t)
-// with twiddle tw[m + i].
-__device__ void forward_stages(u64* x, int polys, int logn,
-                               const u64* __restrict__ tw, u64 q, u64 qinv) {
-  const int half_log = logn - 1;
-  const int total = polys << half_log;
-  for (int s = 0; s < logn; ++s) {
-    const int lt = half_log - s;
-    const int t = 1 << lt;
-    const int m = 1 << s;
-    for (int k = threadIdx.x; k < total; k += blockDim.x) {
-      const int b = k & ((1 << half_log) - 1);
-      const int i = b >> lt;
-      u64* y = x + (static_cast<size_t>(k >> half_log) << logn) +
-               (i << (lt + 1)) + (b & (t - 1));
-      const u64 u = y[0];
-      const u64 v = mont_mul(y[t], tw[m + i], q, qinv);
-      y[0] = add_mod(u, v, q);
-      y[t] = sub_mod(u, v, q);
-    }
+template <int LOGN>
+__device__ __forceinline__ void poly_sync() {
+  if constexpr (Geom<LOGN>::kT <= 32)
+    __syncwarp();
+  else
     __syncthreads();
-  }
 }
 
-// Inverse GS: stage s has span t = 2^s and m = N >> (s+1) groups;
-// (U, V) -> (U + V, (U - V) itw[m + i]).  The N^-1 scale is left to the
-// caller's store.
-__device__ void inverse_stages(u64* x, int polys, int logn,
-                               const u64* __restrict__ itw, u64 q, u64 qinv) {
-  const int half_log = logn - 1;
-  const int total = polys << half_log;
-  for (int s = 0; s < logn; ++s) {
-    const int lt = s;
-    const int t = 1 << lt;
-    const int m = 1 << (half_log - s);
-    for (int k = threadIdx.x; k < total; k += blockDim.x) {
-      const int b = k & ((1 << half_log) - 1);
-      const int i = b >> lt;
-      u64* y = x + (static_cast<size_t>(k >> half_log) << logn) +
-               (i << (lt + 1)) + (b & (t - 1));
-      const u64 u = y[0];
-      const u64 v = y[t];
-      y[0] = add_mod(u, v, q);
-      y[t] = mont_mul(sub_mod(u, v, q), itw[m + i], q, qinv);
+// The stage on window bit JJ of a pass whose window starts at C_LO: pairs
+// (e, e + 2^JJ), the twiddle of the bits above JJ (e_hi = e >> (JJ+1)) and
+// of the high bits h at e_hi 2^hb + h of the stage's block (forward:
+// (N >> (c+1)) - 1, inverse: N - 2 (N >> (c+1)), c = C_LO + JJ); the
+// inverse's stage on the top bit takes the folded constants (c, d).
+template <int LOGN, int C_LO, int JJ, bool kInverse, typename A>
+__device__ __forceinline__ void stage(typename A::V (&x)[Geom<LOGN>::kE],
+                                      int h, const ulonglong2* tw,
+                                      const Mod& m, ulonglong2 c,
+                                      ulonglong2 d) {
+  using G = Geom<LOGN>;
+  constexpr int kBit = C_LO + JJ, kSpan = 1 << JJ;
+  constexpr int kHb = LOGN - C_LO - G::kEb;
+  if constexpr (kInverse && kBit == LOGN - 1) {
+#pragma unroll
+    for (int e = 0; e < G::kE; e += 2 * kSpan)
+#pragma unroll
+      for (int l = 0; l < kSpan; ++l)
+        A::gs_last(x[e + l], x[e + l + kSpan], c, d, m);
+  } else {
+    const ulonglong2* blk =
+        tw + (kInverse ? G::kN - (G::kN >> kBit) : (G::kN >> (kBit + 1)) - 1)
+        + h;
+#pragma unroll
+    for (int g = 0; g < G::kE / (2 * kSpan); ++g) {
+      const ulonglong2 w = blk[g << kHb];
+#pragma unroll
+      for (int l = 0; l < kSpan; ++l) {
+        const int e = 2 * kSpan * g + l;
+        if constexpr (kInverse)
+          A::gs(x[e], x[e + kSpan], w, m);
+        else
+          A::ct(x[e], x[e + kSpan], w, m);
+      }
     }
-    __syncthreads();
   }
 }
 
-// Write x (scaled by `scale` in Montgomery form when `scaled`) as planes.
-__device__ __forceinline__ void store(const u64* x, size_t base, int count,
-                                      bool scaled, u64 scale, u64 q,
-                                      u64 qinv, uint32_t* __restrict__ olo,
-                                      uint32_t* __restrict__ ohi) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const u64 v = scaled ? mont_mul(x[e], scale, q, qinv) : x[e];
-    olo[base + e] = static_cast<uint32_t>(v);
-    ohi[base + e] = static_cast<uint32_t>(v >> 32);
+// The stages of pass P from window bit JJ on: the forward goes from the
+// window's top bit down to its lowest run bit, the inverse back up.
+template <int LOGN, int P, int JJ, bool kInverse, typename A>
+__device__ __forceinline__ void pass_stages(
+    typename A::V (&x)[Geom<LOGN>::kE], int h, const ulonglong2* tw,
+    const Mod& m, ulonglong2 c, ulonglong2 d) {
+  using G = Geom<LOGN>;
+  stage<LOGN, G::c_lo(P), JJ, kInverse, A>(x, h, tw, m, c, d);
+  if constexpr (!kInverse && JJ > G::kEb - G::run(P))
+    pass_stages<LOGN, P, JJ - 1, kInverse, A>(x, h, tw, m, c, d);
+  if constexpr (kInverse && JJ + 1 < G::kEb)
+    pass_stages<LOGN, P, JJ + 1, kInverse, A>(x, h, tw, m, c, d);
+}
+
+template <int LOGN, int P, bool kInverse, typename A>
+__device__ __forceinline__ void run_pass(typename A::V (&x)[Geom<LOGN>::kE],
+                                         int t, const ulonglong2* tw,
+                                         const Mod& m, ulonglong2 c,
+                                         ulonglong2 d) {
+  using G = Geom<LOGN>;
+  constexpr int kFirst = kInverse ? G::kEb - G::run(P) : G::kEb - 1;
+  pass_stages<LOGN, P, kFirst, kInverse, A>(x, t >> G::c_lo(P), tw, m, c,
+                                            d);
+}
+
+// Between pass FROM and pass TO: every thread of the polynomial writes its
+// coefficients to the exchange buffer and reads those of the next window.
+template <int LOGN, int FROM, int TO, typename V>
+__device__ __forceinline__ void exchange(V (&x)[Geom<LOGN>::kE], V* buf,
+                                         int t) {
+  using G = Geom<LOGN>;
+  poly_sync<LOGN>();
+#pragma unroll
+  for (int e = 0; e < G::kE; ++e)
+    buf[swz(coeff<LOGN>(t, e, G::c_lo(FROM)))] = x[e];
+  poly_sync<LOGN>();
+#pragma unroll
+  for (int e = 0; e < G::kE; ++e)
+    x[e] = buf[swz(coeff<LOGN>(t, e, G::c_lo(TO)))];
+}
+
+template <int LOGN, int P, typename A>
+__device__ __forceinline__ void forward_passes(
+    typename A::V (&x)[Geom<LOGN>::kE], typename A::V* buf, int t,
+    const ulonglong2* tw, const Mod& m) {
+  run_pass<LOGN, P, false, A>(x, t, tw, m, ulonglong2{}, ulonglong2{});
+  if constexpr (P + 1 < Geom<LOGN>::kPasses) {
+    exchange<LOGN, P, P + 1>(x, buf, t);
+    forward_passes<LOGN, P + 1, A>(x, buf, t, tw, m);
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+template <int LOGN, int P, typename A>
+__device__ __forceinline__ void inverse_passes(
+    typename A::V (&x)[Geom<LOGN>::kE], typename A::V* buf, int t,
+    const ulonglong2* tw, const Mod& m, ulonglong2 c, ulonglong2 d) {
+  run_pass<LOGN, P, true, A>(x, t, tw, m, c, d);
+  if constexpr (P > 0) {
+    exchange<LOGN, P, P - 1>(x, buf, t);
+    inverse_passes<LOGN, P - 1, A>(x, buf, t, tw, m, c, d);
+  }
+}
+
+// The planes of polynomial `poly` (zeros past the batch) as thread t holds
+// them in the first forward pass (x = t + e T; kBottom = false) or in the
+// first inverse pass (x = t E + e, 128-bit loads; kBottom = true).
+template <int LOGN, bool kBottom>
+__device__ __forceinline__ void load_planes(const uint32_t* __restrict__ lo,
+                                            const uint32_t* __restrict__ hi,
+                                            long long poly, int batch, int t,
+                                            uint32_t (&l)[Geom<LOGN>::kE],
+                                            uint32_t (&h)[Geom<LOGN>::kE]) {
+  using G = Geom<LOGN>;
+  if (poly >= batch) {
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e) l[e] = h[e] = 0;
+    return;
+  }
+  const long long base = poly << LOGN;
+  if constexpr (kBottom) {
+    const uint4* pl = reinterpret_cast<const uint4*>(lo + base + t * G::kE);
+    const uint4* ph = reinterpret_cast<const uint4*>(hi + base + t * G::kE);
+#pragma unroll
+    for (int k = 0; k < G::kE / 4; ++k) {
+      const uint4 a = __ldg(pl + k), b = __ldg(ph + k);
+      l[4 * k] = a.x; l[4 * k + 1] = a.y; l[4 * k + 2] = a.z;
+      l[4 * k + 3] = a.w;
+      h[4 * k] = b.x; h[4 * k + 1] = b.y; h[4 * k + 2] = b.z;
+      h[4 * k + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e) {
+      l[e] = __ldg(lo + base + t + e * G::kT);
+      h[e] = __ldg(hi + base + t + e * G::kT);
+    }
+  }
+}
+
+// Canonical x as planes of polynomial `poly`: 128-bit stores of x = t E + e
+// (kBottom, the forward's last pass) or x = t + e T (the inverse's).
+template <int LOGN, bool kBottom>
+__device__ __forceinline__ void store_planes(uint32_t* __restrict__ olo,
+                                             uint32_t* __restrict__ ohi,
+                                             long long poly, int batch, int t,
+                                             const u64 (&x)[Geom<LOGN>::kE]) {
+  using G = Geom<LOGN>;
+  if (poly >= batch) return;
+  const long long base = poly << LOGN;
+  if constexpr (kBottom) {
+    uint4* pl = reinterpret_cast<uint4*>(olo + base + t * G::kE);
+    uint4* ph = reinterpret_cast<uint4*>(ohi + base + t * G::kE);
+#pragma unroll
+    for (int k = 0; k < G::kE / 4; ++k) {
+      const u64* v = x + 4 * k;
+      pl[k] = make_uint4(static_cast<uint32_t>(v[0]),
+                         static_cast<uint32_t>(v[1]),
+                         static_cast<uint32_t>(v[2]),
+                         static_cast<uint32_t>(v[3]));
+      ph[k] = make_uint4(static_cast<uint32_t>(v[0] >> 32),
+                         static_cast<uint32_t>(v[1] >> 32),
+                         static_cast<uint32_t>(v[2] >> 32),
+                         static_cast<uint32_t>(v[3] >> 32));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e) {
+      olo[base + t + e * G::kT] = static_cast<uint32_t>(x[e]);
+      ohi[base + t + e * G::kT] = static_cast<uint32_t>(x[e] >> 32);
+    }
+  }
+}
+
+// Canonical x as planes of polynomial `poly` through the exchange buffer:
+// every thread writes its coefficients (x = coeff(t, e, C_LO)) there, then
+// stores 4 consecutive ones of each plane at a time, x = 4 (t + k T) + i,
+// so that each warp writes 512 contiguous bytes of a plane a store (no
+// bank conflict: the swizzle spreads a half-warp's reads over 16 pairs).
+template <int LOGN, int C_LO>
+__device__ __forceinline__ void store_staged(uint32_t* __restrict__ olo,
+                                             uint32_t* __restrict__ ohi,
+                                             long long poly, int batch, int t,
+                                             const u64 (&x)[Geom<LOGN>::kE],
+                                             u64* buf) {
+  using G = Geom<LOGN>;
+  poly_sync<LOGN>();
+#pragma unroll
+  for (int e = 0; e < G::kE; ++e) buf[swz(coeff<LOGN>(t, e, C_LO))] = x[e];
+  poly_sync<LOGN>();
+  if (poly >= batch) return;
+  const long long base = poly << LOGN;
+#pragma unroll
+  for (int k = 0; k < G::kE / 4; ++k) {
+    const int j = 4 * (t + k * G::kT);
+    u64 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = buf[swz(j + i)];
+    *reinterpret_cast<uint4*>(olo + base + j) = make_uint4(
+        static_cast<uint32_t>(v[0]), static_cast<uint32_t>(v[1]),
+        static_cast<uint32_t>(v[2]), static_cast<uint32_t>(v[3]));
+    *reinterpret_cast<uint4*>(ohi + base + j) = make_uint4(
+        static_cast<uint32_t>(v[0] >> 32), static_cast<uint32_t>(v[1] >> 32),
+        static_cast<uint32_t>(v[2] >> 32), static_cast<uint32_t>(v[3] >> 32));
+  }
+}
+
+// The table copied once into shared memory (kCount pairs at dst; every
+// load of a thread issued before its first store), or the global one.
+template <bool kShared, int kCount, int kThreads>
+__device__ __forceinline__ const ulonglong2* stage_table(
+    ulonglong2* dst, const ulonglong2* __restrict__ src) {
+  if constexpr (kShared) {
+    constexpr int kPer = (kCount + kThreads - 1) / kThreads;
+    ulonglong2 v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < kCount) v[k] = src[i];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < kCount) dst[i] = v[k];
+    }
+    return dst;
+  } else {
+    return src;
+  }
+}
+
+template <int LOGN>
+__host__ __device__ constexpr bool transform_smem_tables() {
+  return LOGN <= 13;
+}
+template <int LOGN>
+__host__ __device__ constexpr bool mul_smem_tables() {
+  return LOGN <= 12;
+}
+
+template <int LOGN, bool kInverse, typename A>
+__global__ void __launch_bounds__(Geom<LOGN>::kThreads)
 ntt_transform_kernel(const uint32_t* __restrict__ lo,
                      const uint32_t* __restrict__ hi,
                      uint32_t* __restrict__ olo, uint32_t* __restrict__ ohi,
-                     const u64* __restrict__ tw, u64 q, u64 qinv,
-                     u64 ninv_r, int inverse, int batch, int logn,
-                     int per_block) {
-  extern __shared__ __align__(16) u64 x[];
-  const long long p0 = static_cast<long long>(blockIdx.x) * per_block;
-  const int polys = static_cast<int>(
-      min(static_cast<long long>(per_block), batch - p0));
-  const size_t base = static_cast<size_t>(p0) << logn;
-  const int count = polys << logn;
-  load(lo, hi, base, count, x);
-  __syncthreads();
-  if (inverse)
-    inverse_stages(x, polys, logn, tw, q, qinv);
-  else
-    forward_stages(x, polys, logn, tw, q, qinv);
-  store(x, base, count, inverse != 0, ninv_r, q, qinv, olo, ohi);
+                     const ulonglong2* __restrict__ tw_g, Mod m,
+                     ulonglong2 c, ulonglong2 d, int batch) {
+  using G = Geom<LOGN>;
+  using V = typename A::V;
+  constexpr bool kShared = transform_smem_tables<LOGN>();
+  constexpr bool kPrefetch = LOGN <= 13;
+  // the forward's stores through the exchange buffer (its last pass holds
+  // 16 consecutive coefficients a thread); the inverse's last pass holds
+  // x = t + e T, which it stores straight from registers, coalesced
+  constexpr bool kStagedStores = !kInverse;
+  constexpr int kTw = kInverse ? G::kN - 2 : G::kN - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  ulonglong2* const s_tw = reinterpret_cast<ulonglong2*>(smem);
+  V* const xbuf = reinterpret_cast<V*>(
+      smem + (kShared ? kTw * sizeof(ulonglong2) : 0));
+  const ulonglong2* const tw =
+      stage_table<kShared, kTw, G::kThreads>(s_tw, tw_g);
+  if constexpr (kShared) __syncthreads();
+
+  const int slot = threadIdx.x / G::kT, t = threadIdx.x % G::kT;
+  V* const buf = xbuf + slot * G::kN;
+  const int groups = (batch + G::kG - 1) / G::kG;
+  const int stride = gridDim.x;
+  uint32_t nl[G::kE], nh[G::kE];
+  int g = blockIdx.x;
+  if (kPrefetch && g < groups)
+    load_planes<LOGN, kInverse>(lo, hi, 1ll * g * G::kG + slot, batch, t,
+                                nl, nh);
+  for (; g < groups; g += stride) {
+    const long long poly = 1ll * g * G::kG + slot;
+    if (!kPrefetch) load_planes<LOGN, kInverse>(lo, hi, poly, batch, t, nl, nh);
+    V x[G::kE];
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      x[e] = A::from_u64(static_cast<u64>(nl[e]) |
+                         (static_cast<u64>(nh[e]) << 32));
+    if (kPrefetch && g + stride < groups)
+      load_planes<LOGN, kInverse>(lo, hi, poly + 1ll * stride * G::kG,
+                                  batch, t, nl, nh);
+    u64 out[G::kE];
+    if constexpr (kInverse) {
+      inverse_passes<LOGN, G::kPasses - 1, A>(x, buf, t, tw, m, c, d);
+#pragma unroll
+      for (int e = 0; e < G::kE; ++e) out[e] = A::inverse_out(x[e], m);
+    } else {
+      forward_passes<LOGN, 0, A>(x, buf, t, tw, m);
+#pragma unroll
+      for (int e = 0; e < G::kE; ++e) out[e] = A::forward_out(x[e], m);
+    }
+    // the last pass's window: the top bits (inverse) or the bottom ones
+    constexpr int kLast = G::c_lo(kInverse ? 0 : G::kPasses - 1);
+    if constexpr (kStagedStores)
+      store_staged<LOGN, kLast>(olo, ohi, poly, batch, t, out,
+                                reinterpret_cast<u64*>(buf));
+    else
+      store_planes<LOGN, !kInverse>(olo, ohi, poly, batch, t, out);
+  }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// K8 on the wide form: forward(a), forward(b), the pointwise Montgomery
+// product, inverse.
+template <int LOGN>
+__global__ void __launch_bounds__(Geom<LOGN>::kThreads)
 ntt_negacyclic_mul_kernel(const uint32_t* __restrict__ alo,
                           const uint32_t* __restrict__ ahi,
                           const uint32_t* __restrict__ blo,
                           const uint32_t* __restrict__ bhi,
                           uint32_t* __restrict__ olo,
                           uint32_t* __restrict__ ohi,
-                          const u64* __restrict__ fwd_tw,
-                          const u64* __restrict__ inv_tw, u64 q, u64 qinv,
-                          u64 ninv_r, u64 r2, int batch, int logn,
-                          int per_block) {
-  extern __shared__ __align__(16) u64 x[];
-  const long long p0 = static_cast<long long>(blockIdx.x) * per_block;
-  const int polys = static_cast<int>(
-      min(static_cast<long long>(per_block), batch - p0));
-  const size_t base = static_cast<size_t>(p0) << logn;
-  const int count = polys << logn;
-  u64* xa = x;
-  u64* xb = x + count;          // b right after a: 2 * polys polynomials
-  load(alo, ahi, base, count, xa);
-  load(blo, bhi, base, count, xb);
-  __syncthreads();
-  forward_stages(x, 2 * polys, logn, fwd_tw, q, qinv);
-  for (int e = threadIdx.x; e < count; e += blockDim.x)
-    xa[e] = mont_mul(mont_mul(xa[e], xb[e], q, qinv), r2, q, qinv);
-  __syncthreads();
-  inverse_stages(xa, polys, logn, inv_tw, q, qinv);
-  store(xa, base, count, true, ninv_r, q, qinv, olo, ohi);
+                          const ulonglong2* __restrict__ fwd_g,
+                          const ulonglong2* __restrict__ inv_g, Mod m,
+                          u64 qinv, ulonglong2 c, ulonglong2 d, int batch) {
+  using G = Geom<LOGN>;
+  using A = ShoupArith;
+  constexpr bool kShared = mul_smem_tables<LOGN>();
+  constexpr int kFwd = G::kN - 1, kInv = G::kN - 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  ulonglong2* const s_tw = reinterpret_cast<ulonglong2*>(smem);
+  u64* const xbuf = reinterpret_cast<u64*>(
+      smem + (kShared ? (kFwd + kInv) * sizeof(ulonglong2) : 0));
+  const ulonglong2* const fwd =
+      stage_table<kShared, kFwd, G::kThreads>(s_tw, fwd_g);
+  const ulonglong2* const inv =
+      stage_table<kShared, kInv, G::kThreads>(s_tw + kFwd, inv_g);
+  if constexpr (kShared) __syncthreads();
+
+  const int slot = threadIdx.x / G::kT, t = threadIdx.x % G::kT;
+  u64* const buf = xbuf + slot * G::kN;
+  const int groups = (batch + G::kG - 1) / G::kG;
+  const int stride = gridDim.x;
+  for (int g = blockIdx.x; g < groups; g += stride) {
+    const long long poly = 1ll * g * G::kG + slot;
+    uint32_t l[G::kE], h[G::kE];
+    u64 xa[G::kE], xb[G::kE];
+    load_planes<LOGN, false>(alo, ahi, poly, batch, t, l, h);
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      xa[e] = static_cast<u64>(l[e]) | (static_cast<u64>(h[e]) << 32);
+    load_planes<LOGN, false>(blo, bhi, poly, batch, t, l, h);
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      xb[e] = static_cast<u64>(l[e]) | (static_cast<u64>(h[e]) << 32);
+    forward_passes<LOGN, 0, A>(xa, buf, t, fwd, m);
+    forward_passes<LOGN, 0, A>(xb, buf, t, fwd, m);
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      xa[e] = mont_mul(A::forward_out(xa[e], m), A::forward_out(xb[e], m),
+                       m.q, qinv);
+    inverse_passes<LOGN, G::kPasses - 1, A>(xa, buf, t, inv, m, c, d);
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e) xa[e] = A::inverse_out(xa[e], m);
+    store_planes<LOGN, false>(olo, ohi, poly, batch, t, xa);
+  }
 }
 
-bool args_ok(u64 q, int batch, int logn) {
-  return batch >= 1 && logn >= kMinLogN && logn <= kMaxLogN && (q & 1) &&
-         q > 2 && q < (1ull << 63);
-}
-
-// Polynomials per block and threads per block for N = 2^logn.
-void geometry(int logn, int* per_block, int* threads) {
-  const int n = 1 << logn;
-  const int elems = n > kBlockElems ? n : kBlockElems;
-  *per_block = elems / n;
-  int t = elems / 4;
-  *threads = t < 64 ? 64 : (t > kMaxThreads ? kMaxThreads : t);
-}
-
+// Blocks of `kernel` that fit on the card, on the current device (cached
+// per kernel and device; the dynamic shared memory allowed first).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0, optin = 0;
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                            int* cache, int* out) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 16 && cache[dev] > 0) {
+    *out = cache[dev];
+    return cudaSuccess;
+  }
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (err != cudaSuccess) return err;
-  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *out = per_sm * sms;
+  if (dev < 16) cache[dev] = *out;
+  return cudaSuccess;
+}
+
+// Moduli below this take the narrow form (F64Arith).
+constexpr u64 kF64MaxQ = 1ull << 46;
+
+Mod make_mod(u64 q) {
+  return Mod{q, 2 * q, static_cast<double>(q), 1.0 / static_cast<double>(q)};
+}
+
+struct TransformArgs {
+  const uint32_t *lo, *hi;
+  uint32_t *olo, *ohi;
+  const ulonglong2* tw;
+  u64 q;
+  ulonglong2 c, d;
+  int inverse, batch;
+  cudaStream_t stream;
+};
+
+template <int LOGN, bool kInverse, typename A>
+cudaError_t run_transform(const TransformArgs& a) {
+  using G = Geom<LOGN>;
+  static int cache[16];
+  const size_t tw_bytes =
+      transform_smem_tables<LOGN>()
+          ? (kInverse ? G::kN - 2 : G::kN - 1) * sizeof(ulonglong2) : 0;
+  const size_t smem = tw_bytes + static_cast<size_t>(G::kG) * G::kN * 8;
+  auto kernel = ntt_transform_kernel<LOGN, kInverse, A>;
+  int resident = 0;
+  cudaError_t err =
+      resident_blocks(kernel, G::kThreads, smem, cache, &resident);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.batch + G::kG - 1) / G::kG;
+  kernel<<<groups < resident ? groups : resident, G::kThreads, smem,
+           a.stream>>>(a.lo, a.hi, a.olo, a.ohi, a.tw, make_mod(a.q), a.c,
+                       a.d, a.batch);
+  return cudaGetLastError();
+}
+
+template <int LOGN, bool kInverse>
+cudaError_t run_transform(const TransformArgs& a) {
+  return a.q < kF64MaxQ ? run_transform<LOGN, kInverse, F64Arith>(a)
+                        : run_transform<LOGN, kInverse, ShoupArith>(a);
+}
+
+template <int LOGN>
+cudaError_t transform_at(int logn, const TransformArgs& a) {
+  if constexpr (LOGN > kMaxLogN) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (logn != LOGN) return transform_at<LOGN + 1>(logn, a);
+    return a.inverse ? run_transform<LOGN, true>(a)
+                     : run_transform<LOGN, false>(a);
+  }
+}
+
+struct MulArgs {
+  const uint32_t *alo, *ahi, *blo, *bhi;
+  uint32_t *olo, *ohi;
+  const ulonglong2 *fwd, *inv;
+  u64 q, qinv;
+  ulonglong2 c, d;
+  int batch;
+  cudaStream_t stream;
+};
+
+template <int LOGN>
+cudaError_t mul_at(int logn, const MulArgs& a) {
+  if constexpr (LOGN > kMaxLogNMul) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (logn != LOGN) return mul_at<LOGN + 1>(logn, a);
+    using G = Geom<LOGN>;
+    static int cache[16];
+    const size_t tw_bytes = mul_smem_tables<LOGN>()
+                                ? (2 * G::kN - 3) * sizeof(ulonglong2) : 0;
+    const size_t smem = tw_bytes + static_cast<size_t>(G::kG) * G::kN * 8;
+    auto kernel = ntt_negacyclic_mul_kernel<LOGN>;
+    int resident = 0;
+    cudaError_t err =
+        resident_blocks(kernel, G::kThreads, smem, cache, &resident);
+    if (err != cudaSuccess) return err;
+    const int groups = (a.batch + G::kG - 1) / G::kG;
+    kernel<<<groups < resident ? groups : resident, G::kThreads, smem,
+             a.stream>>>(a.alo, a.ahi, a.blo, a.bhi, a.olo, a.ohi, a.fwd,
+                         a.inv, make_mod(a.q), a.qinv, a.c, a.d, a.batch);
+    return cudaGetLastError();
+  }
+}
+
+bool aligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+bool args_ok(u64 q, int batch, int logn, int max_logn) {
+  return batch >= 1 && logn >= kMinLogN && logn <= max_logn && (q & 1) &&
+         q > 2 && q < kMaxQ;
 }
 
 }  // namespace
 
 // One forward (inverse = 0) or inverse (inverse = 1) negacyclic NTT of
 // `batch` polynomials of 2^logn coefficients on `stream`.  lo/hi and
-// olo/ohi: uint32 planes (batch, N), canonical residues; tw: u64 (N,),
-// the Montgomery-scaled psi^bitrev (forward) or psi^-bitrev (inverse)
-// table; qinv = -q^-1 mod 2^64; ninv_r = N^-1 R mod q.  Returns a
+// olo/ohi: uint32 planes (batch, N), canonical residues, 16-byte aligned;
+// tw: the pass-ordered (w, w') table of ops/ntt_pallas.py `twiddle_table`
+// (N - 1 pairs forward, N - 2 inverse); (c, c'), (d, d'): the inverse's
+// folded last stage (`PallasNTT.last_stage`).  q odd, q < 2^62.  Returns a
 // cudaError_t (0 on success).
 extern "C" int nfa_ntt_transform(const void* lo, const void* hi, void* olo,
                                  void* ohi, const void* tw,
-                                 unsigned long long q,
-                                 unsigned long long qinv,
-                                 unsigned long long ninv_r, int inverse,
+                                 unsigned long long q, unsigned long long c,
+                                 unsigned long long cq, unsigned long long d,
+                                 unsigned long long dq, int inverse,
                                  int batch, int logn, void* stream) {
-  if (!args_ok(q, batch, logn)) return static_cast<int>(cudaErrorInvalidValue);
-  int per_block = 0, threads = 0;
-  geometry(logn, &per_block, &threads);
-  const size_t smem = (static_cast<size_t>(per_block) << logn) * sizeof(u64);
-  cudaError_t err = allow_smem(ntt_transform_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (batch + per_block - 1) / per_block;
-  ntt_transform_kernel<<<grid, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
-      static_cast<uint32_t*>(olo), static_cast<uint32_t*>(ohi),
-      static_cast<const u64*>(tw), q, qinv, ninv_r, inverse, batch, logn,
-      per_block);
-  return static_cast<int>(cudaGetLastError());
+  if (!args_ok(q, batch, logn, kMaxLogN) || !aligned(lo) || !aligned(hi) ||
+      !aligned(olo) || !aligned(ohi) || !aligned(tw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TransformArgs a{static_cast<const uint32_t*>(lo),
+                  static_cast<const uint32_t*>(hi),
+                  static_cast<uint32_t*>(olo),
+                  static_cast<uint32_t*>(ohi),
+                  static_cast<const ulonglong2*>(tw),
+                  q,
+                  make_ulonglong2(c, cq),
+                  make_ulonglong2(d, dq),
+                  inverse,
+                  batch,
+                  static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(transform_at<kMinLogN>(logn, a));
 }
 
 // a * b mod (X^N + 1, q) for `batch` pairs in one launch: forward(a),
-// forward(b), pointwise product, inverse.  r2 = R^2 mod q.
-extern "C" int nfa_ntt_negacyclic_mul(const void* alo, const void* ahi,
-                                      const void* blo, const void* bhi,
-                                      void* olo, void* ohi,
-                                      const void* fwd_tw, const void* inv_tw,
-                                      unsigned long long q,
-                                      unsigned long long qinv,
-                                      unsigned long long ninv_r,
-                                      unsigned long long r2, int batch,
-                                      int logn, void* stream) {
-  if (!args_ok(q, batch, logn)) return static_cast<int>(cudaErrorInvalidValue);
-  int per_block = 0, threads = 0;
-  geometry(logn, &per_block, &threads);
-  const size_t smem =
-      2 * (static_cast<size_t>(per_block) << logn) * sizeof(u64);
-  cudaError_t err = allow_smem(ntt_negacyclic_mul_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (batch + per_block - 1) / per_block;
-  ntt_negacyclic_mul_kernel<<<grid, threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(alo), static_cast<const uint32_t*>(ahi),
-      static_cast<const uint32_t*>(blo), static_cast<const uint32_t*>(bhi),
-      static_cast<uint32_t*>(olo), static_cast<uint32_t*>(ohi),
-      static_cast<const u64*>(fwd_tw), static_cast<const u64*>(inv_tw), q,
-      qinv, ninv_r, r2, batch, logn, per_block);
-  return static_cast<int>(cudaGetLastError());
+// forward(b), the pointwise Montgomery product, inverse with (c, d) =
+// the folded last stage scaled by 2^64 mod q.  qinv = -q^-1 mod 2^64.
+extern "C" int nfa_ntt_negacyclic_mul(
+    const void* alo, const void* ahi, const void* blo, const void* bhi,
+    void* olo, void* ohi, const void* fwd_tw, const void* inv_tw,
+    unsigned long long q, unsigned long long qinv, unsigned long long c,
+    unsigned long long cq, unsigned long long d, unsigned long long dq,
+    int batch, int logn, void* stream) {
+  if (!args_ok(q, batch, logn, kMaxLogNMul) || !aligned(alo) ||
+      !aligned(ahi) || !aligned(blo) || !aligned(bhi) || !aligned(olo) ||
+      !aligned(ohi) || !aligned(fwd_tw) || !aligned(inv_tw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MulArgs a{static_cast<const uint32_t*>(alo),
+            static_cast<const uint32_t*>(ahi),
+            static_cast<const uint32_t*>(blo),
+            static_cast<const uint32_t*>(bhi),
+            static_cast<uint32_t*>(olo),
+            static_cast<uint32_t*>(ohi),
+            static_cast<const ulonglong2*>(fwd_tw),
+            static_cast<const ulonglong2*>(inv_tw),
+            q,
+            qinv,
+            make_ulonglong2(c, cq),
+            make_ulonglong2(d, dq),
+            batch,
+            static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(mul_at<kMinLogN>(logn, a));
 }

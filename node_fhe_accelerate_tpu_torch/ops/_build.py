@@ -7,6 +7,8 @@ interface: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 (the source and all shared headers), so a changed header never loads a
 stale library.  A library is built at first use; ``build_all`` starts every
 ``nvcc`` at once.  A failed build raises: there is no fallback.
+``ablated_sources`` makes the edited copies of sources that the ablation
+scripts under ``scripts/`` build beside the real kernels.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "build_all", "launch"]
+__all__ = ["KernelLibrary", "build_all", "launch", "ablated_sources"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -116,3 +118,17 @@ def launch(fn, name: str, device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def ablated_sources(names, edits: dict[str, str]) -> list[str]:
+    """The texts of the ``csrc/`` files ``names`` with ``edits`` ({text:
+    replacement}) made.  Raises unless each text occurs exactly once in
+    the files together, so an edit of a kernel that moves a replaced text
+    shows at once."""
+    texts = [(_CSRC / name).read_text() for name in names]
+    for old, new in edits.items():
+        if sum(t.count(old) for t in texts) != 1:
+            raise RuntimeError(f"{old!r} does not occur exactly once in "
+                               f"{', '.join(names)}")
+        texts = [t.replace(old, new) for t in texts]
+    return texts

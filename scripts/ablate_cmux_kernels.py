@@ -9,7 +9,8 @@ beside the real kernels, copies of ``csrc/cmux_step.cu`` (K1),
 ``csrc/cmux_step_slabs.cu`` (K3 and K2, its two tile orders),
 ``csrc/ladder_tiles.cu`` (K4) and ``csrc/ladder_steps.cu`` (K5) with one
 part of the shared body (``csrc/cmux_common.cuh``) switched off or changed,
-and times each at TFHE_BOOT_128_K4, batch 4096, by CUDA events, in turns.
+and times each at TFHE_BOOT_128_K4, batch 4096, by CUDA events
+(``timing.cuda_ms``), in turns.
 Parts switched off: the digit phase of the consumer warps or of all warps,
 or its loads of the rotated accumulator; the CMux epilogue, or only its
 loads of the accumulator, or only its stores; the wgmma instructions; K1's
@@ -35,6 +36,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "node_fhe_accelerate_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "ablation")
+sys.path.insert(0, ROOT)
+from node_fhe_accelerate_tpu_torch.ops import _build  # noqa: E402
 
 MMA = "WgmmaS8<64 * P>::mma(d, da + 2 * kk, db + 2 * kk, kc | kk);"
 EPI = "epilogue_store<P>(d, prev"
@@ -139,17 +142,9 @@ ABLATIONS = {
 
 def ablated_sources(name: str) -> tuple[str, str]:
     """The shared header and the kernel source of ablation ``name``, with
-    its edits made.  Raises if a text to replace does not occur exactly
-    once, so an edit of the kernels that moves one shows at once."""
+    its edits made."""
     source, edits = ABLATIONS[name]
-    h = open(os.path.join(CSRC, "cmux_common.cuh")).read()
-    s = open(os.path.join(CSRC, source)).read()
-    for old, new in edits.items():
-        if h.count(old) + s.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} does not occur exactly "
-                               "once")
-        h, s = h.replace(old, new), s.replace(old, new)
-    return h, s
+    return tuple(_build.ablated_sources(["cmux_common.cuh", source], edits))
 
 
 def main() -> int:
@@ -162,12 +157,12 @@ def main() -> int:
         print("ablate_cmux_kernels: no CUDA device available",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from node_fhe_accelerate_tpu_torch.core.bootstrap import (
         TFHE_BOOT_128_K4, TfheEngine)
     from node_fhe_accelerate_tpu_torch.ops import cmux, ladder
     from node_fhe_accelerate_tpu_torch.ops._build import (KernelLibrary,
                                                           build_all, launch)
+    from node_fhe_accelerate_tpu_torch.timing import cuda_ms
 
     libs = {}
     for i, (name, (source, _)) in enumerate(ABLATIONS.items()):
@@ -235,17 +230,7 @@ def main() -> int:
 
     def ms_per_step(name):
         ladder_ = name.startswith(("K4", "K5"))
-        iters = 3 if ladder_ else 20
-        run(name)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            run(name)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / iters
+        ms = cuda_ms(lambda: run(name), 3 if ladder_ else 20, warmup=1)
         return ms / args.steps if ladder_ else ms
 
     times = {name: [] for name in libs}

@@ -1,8 +1,9 @@
-"""The ablation copies of scripts/ablate_cmux_kernels.py are made by
-replacing texts of csrc/cmux_common.cuh, csrc/cmux_step.cu and
-csrc/ladder_steps.cu.  Their timing needs the card; the edits are checked
-here, so that a change of the kernels that moves a replaced text fails
-on the CPU instead of on the card."""
+"""The ablation copies of scripts/ablate_cmux_kernels.py and
+scripts/ablate_ntt_kernels.py are made by replacing texts of
+csrc/cmux_common.cuh, csrc/cmux_step.cu, csrc/ladder_steps.cu and
+csrc/ntt.cu.  Their timing needs the card; the edits are checked here, so
+that a change of the kernels that moves a replaced text fails on the CPU
+instead of on the card."""
 import importlib.util
 import os
 
@@ -14,6 +15,11 @@ _spec = importlib.util.spec_from_file_location(
                                         "ablate_cmux_kernels.py"))
 ablate = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ablate)
+_spec = importlib.util.spec_from_file_location(
+    "ablate_ntt_kernels", os.path.join(ROOT, "scripts",
+                                       "ablate_ntt_kernels.py"))
+ablate_ntt = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ablate_ntt)
 
 
 @pytest.mark.parametrize("name", list(ablate.ABLATIONS))
@@ -34,3 +40,20 @@ def test_ablation_refuses_a_missing_text(monkeypatch):
                         ("cmux_step.cu", {"no such text": ";"}))
     with pytest.raises(RuntimeError, match="exactly once"):
         ablate.ablated_sources("broken")
+
+
+@pytest.mark.parametrize("name", list(ablate_ntt.ABLATIONS))
+def test_ntt_ablation_edits_apply(name):
+    edits = ablate_ntt.ABLATIONS[name]
+    text = ablate_ntt.ablated_source(name)
+    with open(os.path.join(ablate_ntt.CSRC, "ntt.cu")) as f:
+        assert (text != f.read()) == bool(edits)
+    for old, new in edits.items():
+        assert new in text and (old not in text or old in new)
+
+
+def test_ntt_ablation_refuses_a_missing_text(monkeypatch):
+    monkeypatch.setitem(ablate_ntt.ABLATIONS, "broken",
+                        {"no such text": ";"})
+    with pytest.raises(RuntimeError, match="exactly once"):
+        ablate_ntt.ablated_source("broken")

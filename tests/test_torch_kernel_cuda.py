@@ -338,14 +338,35 @@ def test_fused_bootstrap_matches_mxu(cuda_device, backend):
 
 
 P1 = (1 << 40) - (1 << 32) + 1
+P2 = (1 << 37) - (1 << 17) + 1
 P_EXT = (1 << 54) - (1 << 24) + 1
 Q_40_1 = 1095216660481
 Q_60_1 = 1152921504606584833
-NTT_SHAPES = dict(argvalues=[(256, 37, P_EXT), (4, 5, Q_40_1),
-                             (1024, 3, Q_40_1), (4096, 24, P1),
-                             (16384, 2, Q_60_1)],
-                  ids=["n256_pext_ragged", "n4", "n1024", "n4096_p1",
-                       "n16384_q60"])
+# the largest NTT prime each form of the kernels' arithmetic takes: the
+# doubles below 2^46 (2^46 - 2^38 + 1), Shoup's products below 2^62 (2^62 -
+# 2^16 + 1; lazy butterflies need 4q < 2^64); the smallest above 2^46
+# (2^46 + 2^15 + 1, the first of the wide form) and above 2^62 (2^62 + 19 *
+# 2^15 + 1, refused); all 1 mod 2^15
+Q_F64_MAX = (1 << 46) - (1 << 38) + 1
+Q_WIDE_MIN = (1 << 46) + (1 << 15) + 1
+Q_MAX = (1 << 62) - (1 << 16) + 1
+Q_ABOVE = (1 << 62) + 622593
+# every degree at a batch of 1 and a ragged one, with the moduli of the
+# paths; the path shapes; more polynomials than resident blocks (264 at
+# N = 4096, 132 at N = 16384 on an H100); the largest modulus
+NTT_SHAPES = dict(argvalues=(
+    [(1 << lg, b, q) for lg, q in zip(range(2, 15), [Q_40_1, P1, Q_60_1,
+                                                     P2, P_EXT] * 3)
+     for b in (1, 3 + 2 * lg)]
+    + [(4096, 1536, P1), (4096, 512, P2), (256, 2560, P_EXT),
+       (256, 37, P_EXT), (16384, 300, Q_60_1), (1024, 17, Q_MAX),
+       (16384, 3, Q_MAX), (4, 5, Q_MAX), (16384, 3, Q_F64_MAX),
+       (4, 5, Q_F64_MAX), (1024, 17, Q_WIDE_MIN)]),
+    ids=[f"n{1 << lg}_b{b}" for lg in range(2, 15) for b in (1, 3 + 2 * lg)]
+    + ["n4096_p1_path", "n4096_p2_path_inverse", "n256_pext_path",
+       "n256_pext_ragged", "n16384_more_than_resident", "n1024_qmax",
+       "n16384_qmax", "n4_qmax", "n16384_f64_qmax", "n4_f64_qmax",
+       "n1024_wide_qmin"])
 
 
 def random_planes(n, batch, q, dev, seed):
@@ -402,6 +423,22 @@ def test_ntt_kernels_refuse_what_they_cannot_hold(cuda_device):
     with pytest.raises(ValueError, match="largest degree"):
         mul.negacyclic_mul(b, b)
     assert mul.forward(b)[0].shape == (1, 1 << 14)
+
+
+@pytest.mark.cuda
+def test_ntt_kernels_refuse_a_modulus_above_2_62(cuda_device):
+    """The prime just above the largest one the kernels take: refused on
+    the card; the plain path still takes it."""
+    pk = PallasNTT(NTTContext(1024, Q_ABOVE))
+    a = random_planes(1024, 2, Q_ABOVE, cuda_device, 3)
+    before = dict(PallasNTT.launches)
+    for entry in (pk.forward, pk.inverse):
+        with pytest.raises(ValueError, match="largest modulus"):
+            entry(a)
+    with pytest.raises(ValueError, match="largest modulus"):
+        pk.negacyclic_mul(a, a)
+    assert PallasNTT.launches == before
+    assert same_planes(pk.ntt.inverse(pk.ntt.forward(a)), a)
 
 
 @pytest.mark.cuda
