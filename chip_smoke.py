@@ -15,11 +15,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    B=1000; K10 row-major at D=32 with B=8160 and 1, at D=48 with B=4096)
    on canonical random elements, the edge values 0, 1, 2, q-1, q-2, ... in
    both layouts, K9 == K10 on transposed inputs, and a few rows against
-   the big-integer oracle a*b*R^-1 mod q; the NTT
+   the big-integer oracle a*b*R^-1 mod q; K10's point kernel (a Jacobian
+   add or double in one launch) on BN254 and BLS12-381 G1 points with the
+   edge rows (p or q at infinity, p = q, p = -q) and on random elements at
+   B = 1, 32 and 1000, against its plain version and against the formulas
+   over the field on the CPU; the NTT
    kernels (ntt.cu: forward, inverse, negacyclic product) at the JAX
    package's bench shapes (N=1024/B=8192, 4096/2048, 16384/512 with
-   Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, and
-   against the big-integer oracle on a few rows), at the bootstrap's shapes
+   Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, in both of
+   its forms, and against the big-integer oracle on a few rows), at the
+   bootstrap's shapes
    (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560), at every degree
    from N=4 to 16384 at a ragged batch, at a batch of 1, N=4 and 16384
    over Q_60_1 and over the largest modulus they take (2^62 - 2^16 + 1),
@@ -61,13 +66,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    counts likewise and for each MSM covering the ``msm`` call alone:
    msm_bn254_4096 as the JAX suite builds it (utils/bench_suite.py:
    points from ``fixed_base_mul(1..4096)`` on the card, 62-bit scalars from
-   default_rng(7)) through the Pippenger, 504 K9 and 2584 K10 launches,
-   equal to the host Pippenger; the same at BLS12-381 G1 with n=1024 (456
-   and 2584); and a 64-bit Bulletproofs range proof on the card
+   default_rng(7)) through the Pippenger, 504 K9 launches, 256 + 33
+   point-kernel launches (the Horner tail's doubles and adds) and no K10
+   single product, equal to the host Pippenger; the same at BLS12-381 G1
+   with n=1024 (456 K9); and a 64-bit Bulletproofs range proof on the card
    (``BulletproofsGens.generate(curve, 64)``, a seeded prover, the value
    drawn as the JAX suite draws it) equal field for field to the proof the
    port makes on the CPU from the same seed, verifying, and refused once
-   t_hat is tampered;
+   t_hat is tampered; each MSM is also held equal to the host's result by
+   projective equality on the card (``Curve.eq``: 8 launches of K10's
+   single product, which no MSM or proof launches any more);
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
    the NTT kernels as device time of back-to-back launches, a spin kernel
@@ -76,11 +84,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    no PyTorch call computes an NTT mod q or a Montgomery product mod a
    254- or 381-bit prime, so the NTT and digit kernels have none), the key
    switch, bootstraps/s per backend, the time of one TFHE_256 "crt" step
-   split into its NTT launches and the plain work around them, the wall
-   time of msm_bn254_4096, its split by point op and width, and, within
-   one call under torch.profiler, the device time and launches of K9, K10
-   and the other kernels and the device's idle share, and the seconds of
-   one 64-bit prove_range and verify_range.
+   split into its NTT launches and the plain work around them, K10's point
+   kernel at B = 1 and 32 (device time back to back and a call with the
+   host's wrapper) beside the launch floor (an empty kernel back to back),
+   the wall time of msm_bn254_4096, its split by point op and width, and,
+   within one call under torch.profiler, the device time and launches of
+   K9, K10's single product and point kernel and the other kernels and the
+   device's idle share, and the seconds of one 64-bit prove_range and
+   verify_range.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,13 +147,14 @@ def modmul_rate(q, mul_rate, fp64_rate):
 MSM_N = 4096             # the JAX suite's msm_bn254_4096 row
 MSM_BLS_N = 1024
 BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
-# launches of one Pippenger (c = 8, W = 32 windows of 8-limb scalars), each
-# point add evaluating 24 products and each double 7: the wide adds of the
-# group scans (log2 8 + ceil(log2(n/8)) + 1 bucket gather + 8 bucket scans)
-# take K9, the narrow tail (8 + 31*8 doubles and 2 + 31 adds at widths 32
-# and 1) takes K10
-PIPPENGER_LAUNCHES = {4096: (24 * (3 + 9 + 1 + 8), 7 * 256 + 24 * 33),
-                      1024: (24 * (3 + 7 + 1 + 8), 7 * 256 + 24 * 33)}
+# launches of one Pippenger (c = 8, W = 32 windows of 8-limb scalars): the
+# wide adds of the group scans (log2 8 + ceil(log2(n/8)) + 1 bucket gather +
+# 8 bucket scans, at least 2048 points each) take K9, 24 products an add;
+# the narrow tail (8 + 31*8 doubles and 2 + 31 adds at widths 32 and 1)
+# takes the point kernel, one launch an op, and no single product:
+# (K9, K10 products, point-kernel adds, point-kernel doubles)
+PIPPENGER_LAUNCHES = {4096: (24 * (3 + 9 + 1 + 8), 0, 33, 256),
+                      1024: (24 * (3 + 7 + 1 + 8), 0, 33, 256)}
 
 
 def variant(name: str) -> str:
@@ -198,6 +210,21 @@ def digits_bound(d, b, mul_rate, peak_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def point_bound(op, d, b, mul_rate, peak_bytes):
+    """(ms, bound_by) of one point-kernel launch over b points of d 8-bit
+    digits held as int32: its planes read (6 an add, 3 a double) and 3
+    written, 4 d bytes each, against the 32-bit multiplies of its CIOS
+    products at the INT32 rate (as ``digits_bound``): 16 an add on these
+    inputs (the double's 7 more only where p = q, which no timed row
+    holds), 7 a double."""
+    L = d // 4
+    products, planes = (16, 9) if op == "add" else (7, 6)
+    t_ops = 2 * (2 * L * L + L) * products * b / mul_rate
+    t_bytes = 4 * d * planes * b / peak_bytes
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def step_work(b, kp1, n, lvl, planes):
     """(int8 MACs, bytes) of one CMux step apart from its weights: the
     contraction, and acc in, out and rot."""
@@ -217,13 +244,25 @@ def ntt_entry(line):
     """'forward|inverse|mul log N [f64|shoup]' of an entry of csrc/ntt.cu
     (the arithmetic form)."""
     m = re.search(r"ntt_(transform|negacyclic_mul)_kernelILi(\d+)E"
-                  r"(?:Lb([01])E(?:\w*?(F64|Shoup)Arith)?)?", line)
+                  r"(?:Lb([01])E)?(?:\w*?(F64|Shoup)Arith)?", line)
     if not m:
         return None
     kind = ("mul" if m.group(1) == "negacyclic_mul" else
             "inverse" if m.group(3) == "1" else "forward")
     return (f"{kind} {m.group(2)}"
             + {"F64": " f64", "Shoup": " shoup"}.get(m.group(4), ""))
+
+
+def digits_entry(line):
+    """'mul L=l digit-major|row-major' or 'point L=l add|double' of an
+    entry of csrc/digits.cu."""
+    m = re.search(r"(mont_mul|point)_kernelILi(\d+)ELb([01])E", line)
+    if not m:
+        return None
+    kind = ({"1": "digit-major", "0": "row-major"} if m.group(1) == "mont_mul"
+            else {"1": "add", "0": "double"})[m.group(3)]
+    return f"{'mul' if m.group(1) == 'mont_mul' else 'point'} " \
+        f"L={m.group(2)} {kind}"
 
 
 def ptxas_summary(text, entry=cmux_entry):
@@ -359,6 +398,8 @@ def main() -> int:
                 ladder.STEPS_LIB):
         log(f"phase 1: {lib.source.name} (wgmma): "
             + "; ".join(ptxas_summary(lib.info["log"])))
+    log("phase 1: digits.cu: " + "; ".join(
+        ptxas_summary(dp.DIGITS_LIB.info["log"], digits_entry)))
     log("phase 1: ntt.cu (by log N): " + "; ".join(sorted(
         ptxas_summary(NTT_LIB.info["log"], ntt_entry),
         key=lambda x: (x.split()[0], int(x.split()[1].strip(":"))))))
@@ -418,6 +459,60 @@ def main() -> int:
     log("phase 2 digits: K9 == K10 on transposed inputs, D=32 B=8160; "
         "rows 0-2 of every check == the big-integer oracle")
     del a, b, aT, bT
+
+    # K10's point kernel (one launch a Jacobian add or double) against its
+    # plain version (the level-stacked formulas over Field.mul_plain) on
+    # curve points with the edge rows of jadd_formula first (p at
+    # infinity, p = q, p = -q, q at infinity, both at infinity) and on
+    # random canonical elements, at the MSM tail's widths 1 and 32 and at
+    # 1000; and against jadd_formula/jdbl_formula over the field on the CPU
+    def edge_points(curve, b):
+        ks = [int(v) for v in np.random.default_rng(b).integers(
+            1, 1 << 62, 2 * b)]
+        P = [x.clone() for x in curve.fixed_base_mul(ks[:b], backend="host")]
+        Q = [x.clone() for x in curve.fixed_base_mul(ks[b:], backend="host")]
+        for i in range(1, min(b, 3)):
+            for c in range(3):
+                Q[c][i] = P[c][i]
+        if b > 2:
+            Q[1][2] = curve.fq.neg(P[1][2])
+        for c, i in ((P[2], 0), (Q[2], 3), (P[2], 4), (Q[2], 4)):
+            if i < b:
+                c[i] = 0
+        return tuple(P), tuple(Q)
+
+    def check_points(label, f, p, q):
+        """(P + Q, 2P) by the point kernel, each == its plain version."""
+        outs = []
+        for op, got, want in (
+                ("jadd", dp.pallas_jadd(f, p, q), dp.jadd_reference(f, p, q)),
+                ("jdbl", dp.pallas_jdbl(f, p), dp.jdbl_reference(f, p))):
+            for i, (g, w) in enumerate(zip(got, want)):
+                worse("digits", check_equal(f"digits {op} {label} "
+                                            f"coordinate {i}", g, w))
+            outs.append(got)
+        return outs
+
+    for cname, make in (("bn254", bn254_g1), ("bls12_381", bls12_381_g1)):
+        curve, curve_cpu = make(dev), make("cpu")
+        f = curve.fq
+        for b in (1, 32, 1000):
+            P, Q = edge_points(curve, b)
+            add, dbl = check_points(f"{cname} D={f.n_limbs} edge rows",
+                                    f, P, Q)
+            Pc, Qc = tuple(x.cpu() for x in P), tuple(x.cpu() for x in Q)
+            if not all(torch.equal(g.cpu(), w) for g, w in
+                       zip(add + dbl, curve_cpu.add(Pc, Qc)
+                           + curve_cpu.double(Pc))):
+                raise AssertionError(f"digits point kernel {cname} B={b}: "
+                                     "!= the formulas over the field on "
+                                     "the CPU")
+            R = [rand_elems(f, b) for _ in range(6)]
+            check_points(f"{cname} D={f.n_limbs} random elements", f, R[:3],
+                         R[3:])
+    log("phase 2 digits: the point kernel == the formulas over the field "
+        "on the CPU, BN254 and BLS12-381, B = 1, 32, 1000")
+    del P, Q, R, add, dbl
     # the NTT kernels against NTTContext, on canonical random residues
     ntts = {}
 
@@ -669,7 +764,9 @@ def main() -> int:
                 "ladder_steps": ladder.blind_rotate_fused_steps.launches,
                 **{f"ntt_{k}": v for k, v in PallasNTT.launches.items()},
                 "digits_mul_t": dp._mul_t_raw.launches,
-                "digits_mul": dp.pallas_field_mul.launches}
+                "digits_mul": dp.pallas_field_mul.launches,
+                "digits_jadd": dp.pallas_jadd.launches,
+                "digits_jdbl": dp.pallas_jdbl.launches}
 
     def zero_counts():
         cmux.cmux_step.launches = 0
@@ -679,6 +776,8 @@ def main() -> int:
         PallasNTT.launches.update(forward=0, inverse=0, negacyclic_mul=0)
         dp._mul_t_raw.launches = 0
         dp.pallas_field_mul.launches = 0
+        dp.pallas_jadd.launches = 0
+        dp.pallas_jdbl.launches = 0
 
     def expect_counts(path, **want):
         got = counts()
@@ -908,23 +1007,37 @@ def main() -> int:
         res = curve.msm(scal, pts)
         torch.cuda.synchronize()
         msm_s = time.perf_counter() - t0
-        k9, k10 = PIPPENGER_LAUNCHES[n_pts]
+        k9, k10, jadd, jdbl = PIPPENGER_LAUNCHES[n_pts]
         got = expect_counts(f"msm {cname} n={n_pts}", digits_mul_t=k9,
-                            digits_mul=k10)
+                            digits_mul=k10, digits_jadd=jadd,
+                            digits_jdbl=jdbl)
         if cname == "bn254":
-            launches["digits_mul_t"] = got["digits_mul_t"]
-            launches["digits_mul"] = got["digits_mul"]
+            for k in ("digits_mul_t", "digits_jadd", "digits_jdbl"):
+                launches[k] = got[k]
         t0 = time.perf_counter()
         host = curve.msm(scal, pts, backend="host")
         host_s = time.perf_counter() - t0
         if affine(curve, res) != affine(curve, host):
             raise AssertionError(f"phase 4: msm {cname} n={n_pts} on the card "
                                  "!= the host Pippenger")
+        # and by projective equality on the card (Curve.eq: 2 squares and
+        # 6 products, each one launch of K10's single product)
+        zero_counts()
+        same = bool(curve.eq(res, host))
+        got_eq = expect_counts(f"msm {cname} Curve.eq", digits_mul=8)
+        if not same:
+            raise AssertionError(f"phase 4: Curve.eq on the card says msm "
+                                 f"{cname} != the host Pippenger")
+        if cname == "bn254":
+            launches["digits_mul"] = got_eq["digits_mul"]
         msm_runs[cname] = (curve, scal, pts, msm_s)
         log(f"phase 4: msm {cname} n={n_pts}: fixed_base_mul on the card "
             f"{fbm_s:.3f} s (== host table); msm {msm_s:.4f} s, == host "
             f"Pippenger ({host_s:.2f} s); K9 launches {got['digits_mul_t']}, "
-            f"K10 launches {got['digits_mul']}")
+            f"K10 products {got['digits_mul']}, point kernel adds "
+            f"{got['digits_jadd']} and doubles {got['digits_jdbl']}; "
+            f"Curve.eq == host on the card, K10 products "
+            f"{got_eq['digits_mul']}")
 
     # a 64-bit Bulletproofs range proof on the card (the JAX suite's
     # bp_range_prove_64 / bp_range_verify_64 rows), field for field equal
@@ -948,24 +1061,31 @@ def main() -> int:
         t0 = time.perf_counter()
         ok = verifier.verify_range(com, proof, BP_BITS, gens)
         verify_s = time.perf_counter() - t0
+        path_counts = counts()              # prove and verify
         proofs[where] = (affine(curve, com.point), proof)
         bp_secs[where] = (prove_s, verify_s)
         if not ok:
             raise AssertionError(f"phase 4: the 64-bit proof made on {where} "
                                  "does not verify")
         if where == "cuda":
-            if not (bp_counts["digits_mul_t"] and bp_counts["digits_mul"]) \
-                    or any(v for k, v in bp_counts.items()
+            # the proof's MSMs and ladders and the verifier's MSM run K9
+            # and the point kernel
+            if not all(path_counts[k] for k in
+                       ("digits_mul_t", "digits_jadd", "digits_jdbl")) \
+                    or any(v for k, v in path_counts.items()
                            if not k.startswith("digits")):
-                raise AssertionError(f"phase 4: prove_range launches "
-                                     f"{bp_counts}")
+                raise AssertionError(f"phase 4: range proof launches "
+                                     f"{path_counts}")
             proof.t_hat = (proof.t_hat + 1) % curve.order
             if verifier.verify_range(com, proof, BP_BITS, gens):
                 raise AssertionError("phase 4: a tampered proof verified")
             proof.t_hat = (proof.t_hat - 1) % curve.order
             log(f"phase 4: prove_range {BP_BITS} bits on the card: K9 "
-                f"launches {bp_counts['digits_mul_t']}, K10 "
-                f"{bp_counts['digits_mul']}; tampered t_hat refused")
+                f"launches {bp_counts['digits_mul_t']}, K10 products "
+                f"{bp_counts['digits_mul']}, point kernel adds "
+                f"{bp_counts['digits_jadd']} and doubles "
+                f"{bp_counts['digits_jdbl']}; with verify_range: "
+                f"{path_counts}; tampered t_hat refused")
     (com_g, pg), (com_c, pc) = proofs["cuda"], proofs["cpu"]
     fields = ("A", "S", "T1", "T2", "t_hat", "tau_x", "mu")
     if com_g != com_c or any(getattr(pg, k) != getattr(pc, k)
@@ -1080,7 +1200,11 @@ def main() -> int:
             ("forward", 16384, 512, q60, "bench Q_60_1"),
             ("inverse", 1024, 8192, q40, "bench Q_40_1"),
             ("inverse", 16384, 512, q40, "bench Q_40_1"),
-            ("negacyclic_mul", 1024, 2048, q40, "bench poly_mul Q_40_1")):
+            ("negacyclic_mul", 1024, 2048, q40, "bench poly_mul Q_40_1"),
+            ("negacyclic_mul", 4096, TFHE256_BATCH, P2,
+             "ring multiply path P2"),
+            ("negacyclic_mul", 4096, TFHE256_BATCH, P_EXT,
+             "wide form P_EXT")):
         time_ntt(kind, deg, b, q, label)
 
     # one TFHE_256 "crt" step, split into its NTT launches and the plain
@@ -1153,6 +1277,40 @@ def main() -> int:
                 "Montgomery product mod a 254- or 381-bit prime)")
     times["digits_mul_t"] = digit_times["mul_t", 32, 131072]
     times["digits_mul"] = digit_times["mul", 32, 1]
+    # K10's point kernel at the MSM tail's widths (1: 248 of its 256
+    # doubles and 31 of its 33 adds; 32), D=32 and 48: device time back to
+    # back (timing.device_ms; the JSON rows, at B=1 and D=32) and events
+    # around host-paced calls, beside the launch floor: an empty kernel
+    # (torch.cuda._sleep(0)) launched back to back
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 100)[0]
+    point_times = {}
+    for cname, make in (("bn254", bn254_g1), ("bls12_381", bls12_381_g1)):
+        curve = make(dev)
+        f = curve.fq
+        for b in (1, 32):
+            P = curve.fixed_base_mul(list(range(3, 3 + b)), backend="host")
+            Q = curve.fixed_base_mul(list(range(1000, 1000 + b)),
+                                     backend="host")
+            for op, run, plain in (
+                    ("add", lambda: dp.pallas_jadd(f, P, Q),
+                     lambda: dp.jadd_reference(f, P, Q)),
+                    ("double", lambda: dp.pallas_jdbl(f, P),
+                     lambda: dp.jdbl_reference(f, P))):
+                back_ms, host_ms = device_ms(run, 50)
+                ms = cuda_ms(run, 50)
+                plain_ms = cuda_ms(plain, 3, warmup=1)
+                b_ms, b_by = point_bound(op, f.n_limbs, b, mul_rate,
+                                         peak_bytes)
+                point_times[op, f.n_limbs, b] = (back_ms, plain_ms,
+                                                 (b_ms, b_by), None)
+                log(f"phase 5: digits point {op} {cname} D={f.n_limbs} "
+                    f"B={b}: kernel {back_ms:.5f} ms back to back (launch "
+                    f"floor {floor_ms:.5f} ms), {ms:.4f} ms a call with the "
+                    f"host's wrapper in between (which takes {host_ms:.4f} "
+                    f"ms), plain {plain_ms:.4f} ms, bound {b_ms:.7f} ms "
+                    f"({b_by}), library none")
+    times["digits_jadd"] = point_times["add", 32, 1]
+    times["digits_jdbl"] = point_times["double", 32, 1]
     # msm_bn254_4096: wall time of one call ending in a synchronize (its
     # split into the kernels and the rest comes from the profiler below)
     curve, scal, pts, _ = msm_runs["bn254"]
@@ -1198,8 +1356,9 @@ def main() -> int:
                                             key=lambda kv: -kv[0][1]))
         + f"; outside the point ops {split_s - in_ops:.4f} s")
     # ... and, within one profiled call alone, the device time of K9
-    # (mont_mul_kernel<L, true>), K10 (<L, false>) and every other kernel,
-    # and the device's idle share of that call's wall time
+    # (mont_mul_kernel<L, true>), K10's single product (<L, false>) and
+    # point kernel (point_kernel<L, add>) and every other kernel, and the
+    # device's idle share of that call's wall time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1215,11 +1374,14 @@ def main() -> int:
     if busy_us:
         prof_us = prof_s * 1e6
         mont = {}
-        for label, tag in (("K9", "true>"), ("K10", "false>")):
-            mine = [k for k in kernels
-                    if "mont_mul_kernel" in k[2] and tag in k[2]]
+        for label, name_in, tag in (
+                ("K9", "mont_mul_kernel", "true>"),
+                ("K10 product", "mont_mul_kernel", "false>"),
+                ("K10 point add", "point_kernel", "true>"),
+                ("K10 point double", "point_kernel", "false>")):
+            mine = [k for k in kernels if name_in in k[2] and tag in k[2]]
             mont[label] = (sum(k[0] for k in mine), sum(k[1] for k in mine))
-        other_us = busy_us - mont["K9"][0] - mont["K10"][0]
+        other_us = busy_us - sum(v[0] for v in mont.values())
         log(f"phase 5: msm_bn254_4096 under the profiler, one call of "
             f"{prof_s:.4f} s: device busy {busy_us / 1e6:.4f} s, idle share "
             f"{100 * (1 - busy_us / prof_us):.1f}%; " + "; ".join(
@@ -1229,7 +1391,7 @@ def main() -> int:
                 for label, (us, cnt) in mont.items())
             + f"; other device kernels {other_us / 1e3:.2f} ms "
             f"({100 * other_us / prof_us:.1f}%) in "
-            f"{sum(k[1] for k in kernels) - mont['K9'][1] - mont['K10'][1]}"
+            f"{sum(k[1] for k in kernels) - sum(v[1] for v in mont.values())}"
             " launches; the most time: " + "; ".join(
                 f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
                 for us, cnt, key in sorted(kernels)[::-1][:6]))
@@ -1250,7 +1412,9 @@ def main() -> int:
              ("ntt_inverse", "ntt.cu", ntt_ref + "179", "ntt"),
              ("ntt_negacyclic_mul", "ntt.cu", ntt_ref + "227", "ntt"),
              ("digits_mul_t", "digits.cu", digits_ref + "393", "digits"),
-             ("digits_mul", "digits.cu", digits_ref + "252", "digits")]
+             ("digits_mul", "digits.cu", digits_ref + "252", "digits"),
+             ("digits_jadd", "digits.cu", digits_ref + "252", "digits"),
+             ("digits_jdbl", "digits.cu", digits_ref + "252", "digits")]
     record = {"kernels": [{
         "name": kname, "route": "cuda", "source": src + source,
         "replaces": line, "launches": launches[kname],

@@ -31,8 +31,10 @@
 //     with one conditional subtraction of 2q, the inverse in [0, 2q).
 // The inverse folds N^-1 into its last stage: the sum output is multiplied
 // by N^-1, the difference output by psi^-bitrev(1) N^-1 (kernel arguments).
-// K8 multiplies pointwise by Montgomery's product (both factors vary), in
-// the wide form, which leaves a factor 2^-64 its folded constants take back.
+// K8 multiplies pointwise in the form of its transforms: below 2^46 by the
+// narrow product of a^ by b^ reduced (both factors in its exact domain),
+// above by Montgomery's product (both factors vary), which leaves a factor
+// 2^-64 its folded constants take back.
 //
 // What bounds it.  A transform of B polynomials reads and writes two uint32
 // planes: 16 B N bytes.  It runs (N/2) log N butterflies a polynomial, each
@@ -73,17 +75,25 @@
 //     pairs, one 128-bit load each; threads that share the bits above the
 //     window read one address, the last forward pass (the first inverse
 //     one) reads consecutive pairs.  The block copies the table into
-//     shared memory once (N <= 8192 for the transforms, N <= 4096 for K8;
-//     above, it is read from global memory through the caches).
+//     shared memory once (N <= 8192 for the transforms; above, it is read
+//     from global memory through the caches).  K8 (`MulPlan`): in the
+//     narrow form 8-byte twiddles (w alone), the forward table in shared
+//     memory and the inverse one through L1, a and b transformed side by
+//     side, stage by stage, so that one twiddle read and one pair of
+//     exchange barriers serve both: 96 KB of shared memory at N = 4096, two
+//     blocks an SM (the first design staged both 16-byte tables, 163 KB, one
+//     block; on an H100 K8 took 0.019 ms at N = 4096, B = 256 over P1, the
+//     first design 0.061); in the wide form that first design.
 //   * A persistent grid (blocks as many as fit, at most one per group of
 //     polynomials) walks the batch; each thread loads the next
 //     polynomial's coefficients into registers while it transforms this
-//     one (N <= 8192), so the bytes arrive under the butterflies.
+//     one (N <= 8192; not K8), so the bytes arrive under the butterflies.
 // Largest N: 16384 for the transforms, 8192 for K8 (a and b in shared
 // memory); q below 2^62 (the entries return cudaErrorInvalidValue above).
 // Later work: fusing the pointwise accumulation of the external product.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -201,16 +211,24 @@ struct F64Arith {
     const double quot = __dsub_rn(__fma_rn(x, m.qinv, kRound), kRound);
     return __fma_rn(-quot, m.qd, x);
   }
-  __device__ static void ct(V& x, V& y, ulonglong2 w, const Mod& m) {
-    const double v = mul(y, from_u64(w.x), m);
+  // Butterflies on a twiddle held as a double (K8's 8-byte tables) or as
+  // the (w, w') pair of the transforms' tables, of which w is taken.
+  __device__ static void ct(V& x, V& y, double w, const Mod& m) {
+    const double v = mul(y, w, m);
     const double u = x;
     x = __dadd_rn(u, v);
     y = __dsub_rn(u, v);
   }
-  __device__ static void gs(V& x, V& y, ulonglong2 w, const Mod& m) {
+  __device__ static void gs(V& x, V& y, double w, const Mod& m) {
     const double u = x, v = y;
     x = reduce(__dadd_rn(u, v), m);
-    y = mul(__dsub_rn(u, v), from_u64(w.x), m);
+    y = mul(__dsub_rn(u, v), w, m);
+  }
+  __device__ static void ct(V& x, V& y, ulonglong2 w, const Mod& m) {
+    ct(x, y, from_u64(w.x), m);
+  }
+  __device__ static void gs(V& x, V& y, ulonglong2 w, const Mod& m) {
+    gs(x, y, from_u64(w.x), m);
   }
   __device__ static void gs_last(V& x, V& y, ulonglong2 c, ulonglong2 d,
                                  const Mod& m) {
@@ -253,44 +271,51 @@ __device__ __forceinline__ void poly_sync() {
 // of the high bits h at e_hi 2^hb + h of the stage's block (forward:
 // (N >> (c+1)) - 1, inverse: N - 2 (N >> (c+1)), c = C_LO + JJ); the
 // inverse's stage on the top bit takes the folded constants (c, d).
-template <int LOGN, int C_LO, int JJ, bool kInverse, typename A>
-__device__ __forceinline__ void stage(typename A::V (&x)[Geom<LOGN>::kE],
-                                      int h, const ulonglong2* tw,
-                                      const Mod& m, ulonglong2 c,
-                                      ulonglong2 d) {
+// The stage runs on each of K polynomials held side by side (K8 runs a and
+// b together), one twiddle read serving all K.
+template <int LOGN, int C_LO, int JJ, bool kInverse, typename A, int K,
+          typename TW>
+__device__ __forceinline__ void stage(typename A::V (&x)[K][Geom<LOGN>::kE],
+                                      int h, const TW* tw, const Mod& m,
+                                      ulonglong2 c, ulonglong2 d) {
   using G = Geom<LOGN>;
   constexpr int kBit = C_LO + JJ, kSpan = 1 << JJ;
   constexpr int kHb = LOGN - C_LO - G::kEb;
   if constexpr (kInverse && kBit == LOGN - 1) {
 #pragma unroll
-    for (int e = 0; e < G::kE; e += 2 * kSpan)
+    for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int l = 0; l < kSpan; ++l)
-        A::gs_last(x[e + l], x[e + l + kSpan], c, d, m);
+      for (int e = 0; e < G::kE; e += 2 * kSpan)
+#pragma unroll
+        for (int l = 0; l < kSpan; ++l)
+          A::gs_last(x[k][e + l], x[k][e + l + kSpan], c, d, m);
   } else {
-    const ulonglong2* blk =
+    const TW* blk =
         tw + (kInverse ? G::kN - (G::kN >> kBit) : (G::kN >> (kBit + 1)) - 1)
         + h;
 #pragma unroll
     for (int g = 0; g < G::kE / (2 * kSpan); ++g) {
-      const ulonglong2 w = blk[g << kHb];
+      const TW w = blk[g << kHb];
 #pragma unroll
-      for (int l = 0; l < kSpan; ++l) {
-        const int e = 2 * kSpan * g + l;
-        if constexpr (kInverse)
-          A::gs(x[e], x[e + kSpan], w, m);
-        else
-          A::ct(x[e], x[e + kSpan], w, m);
-      }
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int l = 0; l < kSpan; ++l) {
+          const int e = 2 * kSpan * g + l;
+          if constexpr (kInverse)
+            A::gs(x[k][e], x[k][e + kSpan], w, m);
+          else
+            A::ct(x[k][e], x[k][e + kSpan], w, m);
+        }
     }
   }
 }
 
 // The stages of pass P from window bit JJ on: the forward goes from the
 // window's top bit down to its lowest run bit, the inverse back up.
-template <int LOGN, int P, int JJ, bool kInverse, typename A>
+template <int LOGN, int P, int JJ, bool kInverse, typename A, int K,
+          typename TW>
 __device__ __forceinline__ void pass_stages(
-    typename A::V (&x)[Geom<LOGN>::kE], int h, const ulonglong2* tw,
+    typename A::V (&x)[K][Geom<LOGN>::kE], int h, const TW* tw,
     const Mod& m, ulonglong2 c, ulonglong2 d) {
   using G = Geom<LOGN>;
   stage<LOGN, G::c_lo(P), JJ, kInverse, A>(x, h, tw, m, c, d);
@@ -300,11 +325,10 @@ __device__ __forceinline__ void pass_stages(
     pass_stages<LOGN, P, JJ + 1, kInverse, A>(x, h, tw, m, c, d);
 }
 
-template <int LOGN, int P, bool kInverse, typename A>
-__device__ __forceinline__ void run_pass(typename A::V (&x)[Geom<LOGN>::kE],
-                                         int t, const ulonglong2* tw,
-                                         const Mod& m, ulonglong2 c,
-                                         ulonglong2 d) {
+template <int LOGN, int P, bool kInverse, typename A, int K, typename TW>
+__device__ __forceinline__ void run_pass(
+    typename A::V (&x)[K][Geom<LOGN>::kE], int t, const TW* tw,
+    const Mod& m, ulonglong2 c, ulonglong2 d) {
   using G = Geom<LOGN>;
   constexpr int kFirst = kInverse ? G::kEb - G::run(P) : G::kEb - 1;
   pass_stages<LOGN, P, kFirst, kInverse, A>(x, t >> G::c_lo(P), tw, m, c,
@@ -312,25 +336,32 @@ __device__ __forceinline__ void run_pass(typename A::V (&x)[Geom<LOGN>::kE],
 }
 
 // Between pass FROM and pass TO: every thread of the polynomial writes its
-// coefficients to the exchange buffer and reads those of the next window.
-template <int LOGN, int FROM, int TO, typename V>
-__device__ __forceinline__ void exchange(V (&x)[Geom<LOGN>::kE], V* buf,
+// coefficients to the exchange buffer and reads those of the next window;
+// K polynomials through K buffers (buffer k at buf + k G::kG G::kN) behind
+// one pair of barriers.
+template <int LOGN, int FROM, int TO, int K, typename V>
+__device__ __forceinline__ void exchange(V (&x)[K][Geom<LOGN>::kE], V* buf,
                                          int t) {
   using G = Geom<LOGN>;
+  constexpr int kBuf = G::kG * G::kN;
   poly_sync<LOGN>();
 #pragma unroll
-  for (int e = 0; e < G::kE; ++e)
-    buf[swz(coeff<LOGN>(t, e, G::c_lo(FROM)))] = x[e];
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      buf[k * kBuf + swz(coeff<LOGN>(t, e, G::c_lo(FROM)))] = x[k][e];
   poly_sync<LOGN>();
 #pragma unroll
-  for (int e = 0; e < G::kE; ++e)
-    x[e] = buf[swz(coeff<LOGN>(t, e, G::c_lo(TO)))];
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < G::kE; ++e)
+      x[k][e] = buf[k * kBuf + swz(coeff<LOGN>(t, e, G::c_lo(TO)))];
 }
 
-template <int LOGN, int P, typename A>
+template <int LOGN, int P, typename A, int K, typename TW>
 __device__ __forceinline__ void forward_passes(
-    typename A::V (&x)[Geom<LOGN>::kE], typename A::V* buf, int t,
-    const ulonglong2* tw, const Mod& m) {
+    typename A::V (&x)[K][Geom<LOGN>::kE], typename A::V* buf, int t,
+    const TW* tw, const Mod& m) {
   run_pass<LOGN, P, false, A>(x, t, tw, m, ulonglong2{}, ulonglong2{});
   if constexpr (P + 1 < Geom<LOGN>::kPasses) {
     exchange<LOGN, P, P + 1>(x, buf, t);
@@ -338,10 +369,10 @@ __device__ __forceinline__ void forward_passes(
   }
 }
 
-template <int LOGN, int P, typename A>
+template <int LOGN, int P, typename A, int K, typename TW>
 __device__ __forceinline__ void inverse_passes(
-    typename A::V (&x)[Geom<LOGN>::kE], typename A::V* buf, int t,
-    const ulonglong2* tw, const Mod& m, ulonglong2 c, ulonglong2 d) {
+    typename A::V (&x)[K][Geom<LOGN>::kE], typename A::V* buf, int t,
+    const TW* tw, const Mod& m, ulonglong2 c, ulonglong2 d) {
   run_pass<LOGN, P, true, A>(x, t, tw, m, c, d);
   if constexpr (P > 0) {
     exchange<LOGN, P, P - 1>(x, buf, t);
@@ -454,12 +485,12 @@ __device__ __forceinline__ void store_staged(uint32_t* __restrict__ olo,
 
 // The table copied once into shared memory (kCount pairs at dst; every
 // load of a thread issued before its first store), or the global one.
-template <bool kShared, int kCount, int kThreads>
-__device__ __forceinline__ const ulonglong2* stage_table(
-    ulonglong2* dst, const ulonglong2* __restrict__ src) {
+template <bool kShared, int kCount, int kThreads, typename TW>
+__device__ __forceinline__ const TW* stage_table(TW* dst,
+                                                 const TW* __restrict__ src) {
   if constexpr (kShared) {
     constexpr int kPer = (kCount + kThreads - 1) / kThreads;
-    ulonglong2 v[kPer];
+    TW v[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int i = threadIdx.x + k * kThreads;
@@ -479,10 +510,6 @@ __device__ __forceinline__ const ulonglong2* stage_table(
 template <int LOGN>
 __host__ __device__ constexpr bool transform_smem_tables() {
   return LOGN <= 13;
-}
-template <int LOGN>
-__host__ __device__ constexpr bool mul_smem_tables() {
-  return LOGN <= 12;
 }
 
 template <int LOGN, bool kInverse, typename A>
@@ -521,11 +548,11 @@ ntt_transform_kernel(const uint32_t* __restrict__ lo,
   for (; g < groups; g += stride) {
     const long long poly = 1ll * g * G::kG + slot;
     if (!kPrefetch) load_planes<LOGN, kInverse>(lo, hi, poly, batch, t, nl, nh);
-    V x[G::kE];
+    V x[1][G::kE];
 #pragma unroll
     for (int e = 0; e < G::kE; ++e)
-      x[e] = A::from_u64(static_cast<u64>(nl[e]) |
-                         (static_cast<u64>(nh[e]) << 32));
+      x[0][e] = A::from_u64(static_cast<u64>(nl[e]) |
+                            (static_cast<u64>(nh[e]) << 32));
     if (kPrefetch && g + stride < groups)
       load_planes<LOGN, kInverse>(lo, hi, poly + 1ll * stride * G::kG,
                                   batch, t, nl, nh);
@@ -533,11 +560,11 @@ ntt_transform_kernel(const uint32_t* __restrict__ lo,
     if constexpr (kInverse) {
       inverse_passes<LOGN, G::kPasses - 1, A>(x, buf, t, tw, m, c, d);
 #pragma unroll
-      for (int e = 0; e < G::kE; ++e) out[e] = A::inverse_out(x[e], m);
+      for (int e = 0; e < G::kE; ++e) out[e] = A::inverse_out(x[0][e], m);
     } else {
       forward_passes<LOGN, 0, A>(x, buf, t, tw, m);
 #pragma unroll
-      for (int e = 0; e < G::kE; ++e) out[e] = A::forward_out(x[e], m);
+      for (int e = 0; e < G::kE; ++e) out[e] = A::forward_out(x[0][e], m);
     }
     // the last pass's window: the top bits (inverse) or the bottom ones
     constexpr int kLast = G::c_lo(kInverse ? 0 : G::kPasses - 1);
@@ -549,59 +576,125 @@ ntt_transform_kernel(const uint32_t* __restrict__ lo,
   }
 }
 
-// K8 on the wide form: forward(a), forward(b), the pointwise Montgomery
-// product, inverse.
-template <int LOGN>
-__global__ void __launch_bounds__(Geom<LOGN>::kThreads)
+template <typename A>
+constexpr bool kNarrow = std::is_same<A, F64Arith>::value;
+
+// How K8 is laid out, by form.  The narrow form (q < 2^46) reads 8-byte
+// twiddles (w as a double), keeps the forward table in shared memory and
+// reads the inverse one through L1, and transforms a and b side by side,
+// stage by stage (one twiddle read and one pair of exchange barriers serve
+// both; N <= 4096, where 512 threads would leave it 128 registers): at
+// N = 4096 96 KB of shared memory and at most 128 registers a thread, two
+// blocks an SM.  It does not load the next pair during this one: on an H100
+// 80GB HBM3 at 700 W (scripts/ablate_ntt_kernels.py) that took 26% longer
+// at N = 4096, B = 256 (where no block has a second pair) and 21% at
+// B = 1536, its registers spilling under the cap.  The wide form is the
+// first design: a, then b, both (w, w') tables in shared memory (N <= 4096),
+// one exchange buffer.
+template <int LOGN, typename A>
+struct MulPlan {
+  static constexpr bool kPaired = kNarrow<A> && LOGN <= 12;
+  static constexpr bool kFwdShared = kNarrow<A> ? LOGN <= 13 : LOGN <= 12;
+  static constexpr bool kInvShared = kNarrow<A> ? false : LOGN <= 12;
+  static constexpr bool kPrefetch = false;
+  static constexpr int kBuffers = kPaired ? 2 : 1;
+  static constexpr int kMinBlocks = kNarrow<A> && LOGN == 12 ? 2 : 1;
+  using TW = typename std::conditional<kNarrow<A>, double, ulonglong2>::type;
+  static constexpr size_t smem() {
+    using G = Geom<LOGN>;
+    return (kFwdShared ? (G::kN - 1) * sizeof(TW) : 0) +
+           (kInvShared ? (G::kN - 2) * sizeof(TW) : 0) +
+           static_cast<size_t>(kBuffers) * G::kG * G::kN * 8;
+  }
+};
+
+// K8: forward(a), forward(b), the pointwise product, inverse.  The narrow
+// form's product is mul(a^, reduce(b^)): |a^| < 12 q < 2^50 and |reduce(b^)|
+// <= q / 2 + 1 < q, in the domain where F64Arith::mul is exact, at most
+// 0.75 q in size, which the inverse takes as it is.  The wide form's is
+// Montgomery's on the canonical residues, which leaves a factor 2^-64 that
+// its folded constants (c, d) take back.
+template <int LOGN, typename A>
+__global__ void __launch_bounds__(Geom<LOGN>::kThreads,
+                                  MulPlan<LOGN, A>::kMinBlocks)
 ntt_negacyclic_mul_kernel(const uint32_t* __restrict__ alo,
                           const uint32_t* __restrict__ ahi,
                           const uint32_t* __restrict__ blo,
                           const uint32_t* __restrict__ bhi,
                           uint32_t* __restrict__ olo,
                           uint32_t* __restrict__ ohi,
-                          const ulonglong2* __restrict__ fwd_g,
-                          const ulonglong2* __restrict__ inv_g, Mod m,
-                          u64 qinv, ulonglong2 c, ulonglong2 d, int batch) {
+                          const typename MulPlan<LOGN, A>::TW* __restrict__ fwd_g,
+                          const typename MulPlan<LOGN, A>::TW* __restrict__ inv_g,
+                          Mod m, u64 qinv, ulonglong2 c, ulonglong2 d,
+                          int batch) {
   using G = Geom<LOGN>;
-  using A = ShoupArith;
-  constexpr bool kShared = mul_smem_tables<LOGN>();
+  using Plan = MulPlan<LOGN, A>;
+  using TW = typename Plan::TW;
+  using V = typename A::V;
   constexpr int kFwd = G::kN - 1, kInv = G::kN - 2;
+  constexpr bool kPrefetch = Plan::kPrefetch;
   extern __shared__ __align__(16) unsigned char smem[];
-  ulonglong2* const s_tw = reinterpret_cast<ulonglong2*>(smem);
-  u64* const xbuf = reinterpret_cast<u64*>(
-      smem + (kShared ? (kFwd + kInv) * sizeof(ulonglong2) : 0));
-  const ulonglong2* const fwd =
-      stage_table<kShared, kFwd, G::kThreads>(s_tw, fwd_g);
-  const ulonglong2* const inv =
-      stage_table<kShared, kInv, G::kThreads>(s_tw + kFwd, inv_g);
-  if constexpr (kShared) __syncthreads();
+  TW* const s_fwd = reinterpret_cast<TW*>(smem);
+  TW* const s_inv = s_fwd + (Plan::kFwdShared ? kFwd : 0);
+  V* const xbuf =
+      reinterpret_cast<V*>(s_inv + (Plan::kInvShared ? kInv : 0));
+  const TW* const fwd =
+      stage_table<Plan::kFwdShared, kFwd, G::kThreads>(s_fwd, fwd_g);
+  const TW* const inv =
+      stage_table<Plan::kInvShared, kInv, G::kThreads>(s_inv, inv_g);
+  if constexpr (Plan::kFwdShared || Plan::kInvShared) __syncthreads();
 
   const int slot = threadIdx.x / G::kT, t = threadIdx.x % G::kT;
-  u64* const buf = xbuf + slot * G::kN;
+  V* const buf = xbuf + slot * G::kN;
   const int groups = (batch + G::kG - 1) / G::kG;
   const int stride = gridDim.x;
-  for (int g = blockIdx.x; g < groups; g += stride) {
+  uint32_t nl[2][G::kE], nh[2][G::kE];
+  int g = blockIdx.x;
+  if (kPrefetch && g < groups) {
     const long long poly = 1ll * g * G::kG + slot;
-    uint32_t l[G::kE], h[G::kE];
-    u64 xa[G::kE], xb[G::kE];
-    load_planes<LOGN, false>(alo, ahi, poly, batch, t, l, h);
+    load_planes<LOGN, false>(alo, ahi, poly, batch, t, nl[0], nh[0]);
+    load_planes<LOGN, false>(blo, bhi, poly, batch, t, nl[1], nh[1]);
+  }
+  for (; g < groups; g += stride) {
+    const long long poly = 1ll * g * G::kG + slot;
+    if (!kPrefetch) {
+      load_planes<LOGN, false>(alo, ahi, poly, batch, t, nl[0], nh[0]);
+      load_planes<LOGN, false>(blo, bhi, poly, batch, t, nl[1], nh[1]);
+    }
+    V x[2][G::kE];
 #pragma unroll
-    for (int e = 0; e < G::kE; ++e)
-      xa[e] = static_cast<u64>(l[e]) | (static_cast<u64>(h[e]) << 32);
-    load_planes<LOGN, false>(blo, bhi, poly, batch, t, l, h);
+    for (int k = 0; k < 2; ++k)
 #pragma unroll
-    for (int e = 0; e < G::kE; ++e)
-      xb[e] = static_cast<u64>(l[e]) | (static_cast<u64>(h[e]) << 32);
-    forward_passes<LOGN, 0, A>(xa, buf, t, fwd, m);
-    forward_passes<LOGN, 0, A>(xb, buf, t, fwd, m);
+      for (int e = 0; e < G::kE; ++e)
+        x[k][e] = A::from_u64(static_cast<u64>(nl[k][e]) |
+                              (static_cast<u64>(nh[k][e]) << 32));
+    V (&xa)[1][G::kE] = reinterpret_cast<V (&)[1][G::kE]>(x[0]);
+    V (&xb)[1][G::kE] = reinterpret_cast<V (&)[1][G::kE]>(x[1]);
+    if constexpr (Plan::kPaired) {
+      forward_passes<LOGN, 0, A>(x, buf, t, fwd, m);
+    } else {
+      forward_passes<LOGN, 0, A>(xa, buf, t, fwd, m);
+      forward_passes<LOGN, 0, A>(xb, buf, t, fwd, m);
+    }
 #pragma unroll
-    for (int e = 0; e < G::kE; ++e)
-      xa[e] = mont_mul(A::forward_out(xa[e], m), A::forward_out(xb[e], m),
-                       m.q, qinv);
+    for (int e = 0; e < G::kE; ++e) {
+      if constexpr (kNarrow<A>)
+        x[0][e] = A::mul(x[0][e], A::reduce(x[1][e], m), m);
+      else
+        x[0][e] = mont_mul(A::forward_out(x[0][e], m),
+                           A::forward_out(x[1][e], m), m.q, qinv);
+    }
+    // the next pair arrives under this one's inverse
+    if (kPrefetch && g + stride < groups) {
+      const long long next = poly + 1ll * stride * G::kG;
+      load_planes<LOGN, false>(alo, ahi, next, batch, t, nl[0], nh[0]);
+      load_planes<LOGN, false>(blo, bhi, next, batch, t, nl[1], nh[1]);
+    }
     inverse_passes<LOGN, G::kPasses - 1, A>(xa, buf, t, inv, m, c, d);
+    u64 out[G::kE];
 #pragma unroll
-    for (int e = 0; e < G::kE; ++e) xa[e] = A::inverse_out(xa[e], m);
-    store_planes<LOGN, false>(olo, ohi, poly, batch, t, xa);
+    for (int e = 0; e < G::kE; ++e) out[e] = A::inverse_out(x[0][e], m);
+    store_planes<LOGN, false>(olo, ohi, poly, batch, t, out);
   }
 }
 
@@ -692,12 +785,33 @@ cudaError_t transform_at(int logn, const TransformArgs& a) {
 struct MulArgs {
   const uint32_t *alo, *ahi, *blo, *bhi;
   uint32_t *olo, *ohi;
-  const ulonglong2 *fwd, *inv;
+  const void *fwd, *inv;
   u64 q, qinv;
   ulonglong2 c, d;
   int batch;
   cudaStream_t stream;
 };
+
+template <int LOGN, typename A>
+cudaError_t run_mul(const MulArgs& a) {
+  using G = Geom<LOGN>;
+  using Plan = MulPlan<LOGN, A>;
+  using TW = typename Plan::TW;
+  static int cache[16];
+  constexpr size_t smem = Plan::smem();
+  auto kernel = ntt_negacyclic_mul_kernel<LOGN, A>;
+  int resident = 0;
+  cudaError_t err =
+      resident_blocks(kernel, G::kThreads, smem, cache, &resident);
+  if (err != cudaSuccess) return err;
+  const int groups = (a.batch + G::kG - 1) / G::kG;
+  kernel<<<groups < resident ? groups : resident, G::kThreads, smem,
+           a.stream>>>(a.alo, a.ahi, a.blo, a.bhi, a.olo, a.ohi,
+                       static_cast<const TW*>(a.fwd),
+                       static_cast<const TW*>(a.inv), make_mod(a.q), a.qinv,
+                       a.c, a.d, a.batch);
+  return cudaGetLastError();
+}
 
 template <int LOGN>
 cudaError_t mul_at(int logn, const MulArgs& a) {
@@ -705,21 +819,8 @@ cudaError_t mul_at(int logn, const MulArgs& a) {
     return cudaErrorInvalidValue;
   } else {
     if (logn != LOGN) return mul_at<LOGN + 1>(logn, a);
-    using G = Geom<LOGN>;
-    static int cache[16];
-    const size_t tw_bytes = mul_smem_tables<LOGN>()
-                                ? (2 * G::kN - 3) * sizeof(ulonglong2) : 0;
-    const size_t smem = tw_bytes + static_cast<size_t>(G::kG) * G::kN * 8;
-    auto kernel = ntt_negacyclic_mul_kernel<LOGN>;
-    int resident = 0;
-    cudaError_t err =
-        resident_blocks(kernel, G::kThreads, smem, cache, &resident);
-    if (err != cudaSuccess) return err;
-    const int groups = (a.batch + G::kG - 1) / G::kG;
-    kernel<<<groups < resident ? groups : resident, G::kThreads, smem,
-             a.stream>>>(a.alo, a.ahi, a.blo, a.bhi, a.olo, a.ohi, a.fwd,
-                         a.inv, make_mod(a.q), a.qinv, a.c, a.d, a.batch);
-    return cudaGetLastError();
+    return a.q < kF64MaxQ ? run_mul<LOGN, F64Arith>(a)
+                          : run_mul<LOGN, ShoupArith>(a);
   }
 }
 
@@ -765,8 +866,11 @@ extern "C" int nfa_ntt_transform(const void* lo, const void* hi, void* olo,
 }
 
 // a * b mod (X^N + 1, q) for `batch` pairs in one launch: forward(a),
-// forward(b), the pointwise Montgomery product, inverse with (c, d) =
-// the folded last stage scaled by 2^64 mod q.  qinv = -q^-1 mod 2^64.
+// forward(b), the pointwise product, inverse.  Below q = 2^46 (the narrow
+// form) fwd_tw and inv_tw hold each twiddle w as a double (N - 1 and N - 2
+// of them) and (c, d) is the folded last stage; above, they are the (w, w')
+// pair tables and (c, d) the folded last stage scaled by 2^64 mod q, which
+// the pointwise Montgomery product takes away.  qinv = -q^-1 mod 2^64.
 extern "C" int nfa_ntt_negacyclic_mul(
     const void* alo, const void* ahi, const void* blo, const void* bhi,
     void* olo, void* ohi, const void* fwd_tw, const void* inv_tw,
@@ -783,8 +887,8 @@ extern "C" int nfa_ntt_negacyclic_mul(
             static_cast<const uint32_t*>(bhi),
             static_cast<uint32_t*>(olo),
             static_cast<uint32_t*>(ohi),
-            static_cast<const ulonglong2*>(fwd_tw),
-            static_cast<const ulonglong2*>(inv_tw),
+            fwd_tw,
+            inv_tw,
             q,
             qinv,
             make_ulonglong2(c, cq),

@@ -2,31 +2,36 @@
 the point ops built on them (counterpart of
 node_fhe_accelerate_tpu/ops/digits_pallas.py).
 
-Two kernels of ``csrc/digits.cu`` (built at first use, see ``_build.py``)
-compute the same function -- the Montgomery product a*b*R^-1 mod q with
-R = 2^(8D), on canonical strict 8-bit digits in and out, D = 32 (BN254 Fq/Fr,
-BLS12-381 Fr) or 48 (BLS12-381 Fq) -- in two layouts:
+``csrc/digits.cu`` (built at first use, see ``_build.py``) holds the
+Montgomery product a*b*R^-1 mod q with R = 2^(8D), on canonical strict
+8-bit digits in and out, D = 32 (BN254 Fq/Fr, BLS12-381 Fr) or 48
+(BLS12-381 Fq), in two layouts, and the point kernel built on it:
 
 * K9, digit-major (D, B): ``_mul_t_raw`` and ``pallas_field_mul_t``; every
   multiply of ``pallas_jadd_t``/``pallas_jdbl_t``, which evaluate
   ``zk/curve.py``'s ``jadd_formula``/``jdbl_formula`` over ``_TField``
   (``_TField2`` for Fq2) -- the wide point ops of the MSM;
-* K10, row-major (B, D): ``pallas_field_mul`` and ``pallas_field_mul_pairs``;
-  ``zk/field.py`` ``Field.mul``/``square`` on a CUDA tensor, and the
-  level-stacked ``pallas_jadd``/``pallas_jdbl``.
+* K10, row-major (B, D), the JAX package's ``_point_call``: the single
+  product ``pallas_field_mul``, which
+  ``zk/field.py`` ``Field.mul``/``square`` launch on a CUDA tensor; and
+  the point kernel, a whole Jacobian add or double in one launch
+  (``pallas_jadd``/``pallas_jdbl``), which ``Curve.add``/``double`` take
+  on the card below 2048 points.
 
 A CUDA tensor launches the kernel or the call raises; only a CPU tensor
-takes the plain version, which is ``Field.mul_plain`` (the digit
-convolution and Montgomery reduce of ``ops/digits.py``) in the respective
-layout (``mul_t_reference``, ``field_mul_reference``).  Each kernel counts
-its launches in ``_mul_t_raw.launches`` (K9) and ``pallas_field_mul.launches``
-(K10).  The kernels take any batch B >= 1; the TPU's tile padding does not
-apply.
+takes the plain version: ``Field.mul_plain`` (the digit convolution and
+Montgomery reduce of ``ops/digits.py``) in the respective layout
+(``mul_t_reference``, ``field_mul_reference``), and for the point kernel
+the level-stacked formulas over it (``jadd_reference``,
+``jdbl_reference``).  Each entry counts its launches: ``_mul_t_raw.launches``
+(K9), ``pallas_field_mul.launches``, ``pallas_jadd.launches`` and
+``pallas_jdbl.launches`` (K10).  The kernels take any batch B >= 1; the
+TPU's tile padding does not apply.
 
-The cheap glue (digit add/sub/select and the carry resolution) stays plain
-torch between kernel calls, as it stays XLA in the JAX package.  Every field
-op maps canonical digits to canonical digits, so results are bit-identical
-to the plain path per op, not just per formula.
+Around K9 the cheap glue (digit add/sub/select and the carry resolution)
+stays plain torch between kernel calls, as it stays XLA in the JAX package.
+Every field op maps canonical digits to canonical digits, so results are
+bit-identical to the plain path per op, not just per formula.
 """
 from __future__ import annotations
 
@@ -37,15 +42,17 @@ import torch
 from . import digits as dg
 from ._build import KernelLibrary, launch
 
-__all__ = ["pallas_field_mul", "pallas_field_mul_pairs", "pallas_field_mul_t",
+__all__ = ["pallas_field_mul", "pallas_field_mul_t",
            "pallas_jadd", "pallas_jdbl", "pallas_jadd_t", "pallas_jdbl_t",
-           "mul_t_reference", "field_mul_reference", "DIGITS_LIB"]
+           "mul_t_reference", "field_mul_reference", "jadd_reference",
+           "jdbl_reference", "DIGITS_LIB"]
 
 _PTR, _INT, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_uint32)
 DIGITS_LIB = KernelLibrary("digits.cu", {
     "nfa_digits_mont_mul": [_PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR, _U32,
                             _PTR],
+    "nfa_digits_point": [_INT] + [_PTR] * 9 + [_I64, _INT, _PTR, _U32, _PTR],
 })
 KERNEL_DIGITS = (32, 48)          # the instantiations of csrc/digits.cu
 
@@ -168,18 +175,19 @@ def pallas_field_mul(field, a, b):
 pallas_field_mul.launches = 0
 
 
-def pallas_field_mul_pairs(field, pairs):
-    """k independent multiplies as ONE launch: the (a_i, b_i) pairs
-    (identical shapes) are row-stacked, multiplied by the same kernel, and
-    split back -- the batching unit of the level-scheduled point ops."""
+def _mul_pairs(mul, field, pairs):
+    """k independent products as one call of ``mul``: the (a_i, b_i) pairs
+    (identical shapes) row-stacked, multiplied, and split back -- the
+    batching unit of the level-stacked point ops."""
     a0 = pairs[0][0]
     batch, D = a0.shape[:-1], a0.shape[-1]
     A = torch.cat([a.reshape(-1, D) for a, _ in pairs])
     Bc = torch.cat([b.reshape(-1, D) for _, b in pairs])
-    out = pallas_field_mul(field, A, Bc)
+    out = mul(field, A, Bc)
     B = A.shape[0] // len(pairs)
     return tuple(out[i * B:(i + 1) * B].reshape(batch + (D,))
                  for i in range(len(pairs)))
+
 
 
 # ---------------------------------------------------------------------------
@@ -354,14 +362,75 @@ def pallas_jdbl_t(field, p):
 
 
 # ---------------------------------------------------------------------------
-# Level-stacked point ops over K10
+# K10 as the point kernel: one launch a Jacobian add or double
 # ---------------------------------------------------------------------------
 
 
+def _point_planes(field, planes, name: str):
+    """The coordinate planes broadcast to one shape, after the checks of
+    ``_check`` (which raise on what the point kernel does not take)."""
+    planes = torch.broadcast_tensors(*planes)
+    for x in planes[1:]:
+        _check(field, planes[0], x, -1, name)
+    return planes
+
+
+def _point_launch(field, planes, name: str):
+    """One launch of the point kernel on (..., D) planes: 6 for an add, 3
+    for a double; (X3, Y3, Z3) out (none launched for an empty batch)."""
+    batch, D = planes[0].shape[:-1], planes[0].shape[-1]
+    rows = [_aligned(x.reshape(-1, D)) for x in planes]
+    out = [torch.empty_like(rows[0]) for _ in range(3)]
+    n = rows[0].shape[0]
+    if n:
+        limbs, qinv = _kernel_consts(field)
+        ptrs = [x.data_ptr() for x in rows] + [None] * (6 - len(rows))
+        launch(DIGITS_LIB.load().nfa_digits_point, name, rows[0].device,
+               int(len(rows) == 6), *ptrs, *[o.data_ptr() for o in out], n,
+               D // 4, limbs, qinv)
+    return tuple(o.reshape(batch + (D,)) for o in out), bool(n)
+
+
 def pallas_jadd(field, p, q):
-    """Branchless Jacobian add (add-2007-bl + dbl/infinity masks, the exact
-    algebra of zk/curve.py ``jadd_formula``), with every multiply routed
-    through stacked K10 launches in 6 dataflow levels:
+    """Branchless Jacobian add of (..., D) points (zk/curve.py
+    ``jadd_formula``, the doubling and infinity cases included); operands
+    broadcast.  On a CUDA tensor one launch of the point kernel
+    (``point_kernel<L, true>``), counted in ``pallas_jadd.launches``; on a
+    CPU tensor its plain version ``jadd_reference``."""
+    planes = _point_planes(field, tuple(p) + tuple(q), "pallas_jadd")
+    if planes[0].device.type == "cpu":
+        return jadd_reference(field, planes[:3], planes[3:])
+    out, launched = _point_launch(field, planes, "digits jadd")
+    pallas_jadd.launches += launched
+    return out
+
+
+pallas_jadd.launches = 0
+
+
+def pallas_jdbl(field, p):
+    """Jacobian double of (..., D) points (zk/curve.py ``jdbl_formula``):
+    one launch of the point kernel (``point_kernel<L, false>``) on a CUDA
+    tensor, counted in ``pallas_jdbl.launches``; ``jdbl_reference`` on a
+    CPU tensor."""
+    planes = _point_planes(field, tuple(p), "pallas_jdbl")
+    if planes[0].device.type == "cpu":
+        return jdbl_reference(field, planes)
+    out, launched = _point_launch(field, planes, "digits jdbl")
+    pallas_jdbl.launches += launched
+    return out
+
+
+pallas_jdbl.launches = 0
+
+
+
+
+def jadd_reference(field, p, q):
+    """The point kernel's plain version for an add: the branchless Jacobian
+    add (add-2007-bl + dbl/infinity masks, the exact algebra of zk/curve.py
+    ``jadd_formula``) with its products stacked in 6 dataflow levels, each
+    level one ``Field.mul_plain``:
 
       L1  Z1^2, Z2^2, X1^2, Y1^2, (Z1+Z2)^2, 2Y1*Z1      (add + dbl prep)
       L2  U1, U2, Z2*Z2Z2, Z1*Z1Z1, B^2, (X1+B)^2
@@ -375,7 +444,7 @@ def pallas_jadd(field, p, q):
     X2, Y2, Z2 = q
 
     def M(prs):
-        return pallas_field_mul_pairs(field, prs)
+        return _mul_pairs(field_mul_reference, field, prs)
 
     Z1pZ2 = f.add(Z1, Z2)
     Y1x2 = f.add(Y1, Y1)
@@ -429,13 +498,14 @@ def pallas_jadd(field, p, q):
     return (X3, Y3, Z3)
 
 
-def pallas_jdbl(field, p):
-    """Jacobian double (dbl-2009-l), multiplies in 4 stacked levels."""
+def jdbl_reference(field, p):
+    """The point kernel's plain version for a double (dbl-2009-l), its
+    products in 4 stacked levels of ``Field.mul_plain``."""
     f = field
     X, Y, Z = p
 
     def M(prs):
-        return pallas_field_mul_pairs(field, prs)
+        return _mul_pairs(field_mul_reference, field, prs)
 
     Yx2 = f.add(Y, Y)
     A, B, Z3 = M([(X, X), (Y, Y), (Yx2, Z)])

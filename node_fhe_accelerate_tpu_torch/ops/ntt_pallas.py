@@ -8,7 +8,8 @@ node_fhe_accelerate_tpu/ops/ntt_pallas.py).
 * ``inverse``: the Gentleman-Sande stages with the N^-1 scale folded into
   the last one, in one launch (K7);
 * ``negacyclic_mul``: forward(a), forward(b), the pointwise product and the
-  inverse in one launch (K8).
+  inverse in one launch (K8; below 2^46 its tables hold the twiddles alone,
+  as doubles).
 
 A CUDA tensor launches the kernel of ``csrc/ntt.cu`` (built at first use,
 see ``_build.py``) or raises; only a CPU tensor takes the plain
@@ -129,14 +130,18 @@ class PallasNTT:
         d = int(self.ntt.ipsis[1]) * c % q
         return shoup_pair(c, q) + shoup_pair(d, q)
 
-    def _tables(self, device):
-        """(forward, inverse) ``twiddle_table``s as int64 tensors with u64
-        bits on ``device`` (every entry is below 2^64; the bits are kept)."""
-        key = str(device)
+    def _tables(self, device, narrow: bool = False):
+        """(forward, inverse) ``twiddle_table``s on ``device``: as int64
+        tensors with the u64 bits of the (w, w') pairs, or, ``narrow``, the
+        twiddles w alone as float64 (exact: w < q < 2^46), which K8 reads
+        in its narrow form."""
+        key = (str(device), narrow)
         if key not in self._tw:
+            tables = [twiddle_table(self.ntt, inv) for inv in (False, True)]
             self._tw[key] = tuple(
-                torch.from_numpy(twiddle_table(self.ntt, inv).view(np.int64))
-                .to(device) for inv in (False, True))
+                torch.from_numpy(t[:, 0].astype(np.float64) if narrow
+                                 else t.view(np.int64)).to(device)
+                for t in tables)
         return self._tw[key]
 
     def _check(self, planes, name: str, max_logn: int):
@@ -205,14 +210,17 @@ class PallasNTT:
         olo, ohi = torch.empty_like(alo), torch.empty_like(ahi)
         if n_rows:
             c = self.ctx
-            fwd, inv = self._tables(dev)
-            # the pointwise Montgomery product leaves a factor R^-1, which
-            # the folded last stage takes back with N^-1
+            narrow = c.q < F64_MAX_Q
+            fwd, inv = self._tables(dev, narrow)
+            # the wide form's pointwise Montgomery product leaves a factor
+            # R^-1, which the folded last stage takes back with N^-1; the
+            # narrow form's product is exact
             launch(NTT_LIB.load().nfa_ntt_negacyclic_mul,
                    "ntt negacyclic_mul", dev, alo.data_ptr(),
                    ahi.data_ptr(), blo.data_ptr(), bhi.data_ptr(),
                    olo.data_ptr(), ohi.data_ptr(), fwd.data_ptr(),
                    inv.data_ptr(), c.q, c.q_inv_neg,
-                   *self.last_stage(c.r_mod_q), n_rows, self.logn)
+                   *self.last_stage(1 if narrow else c.r_mod_q), n_rows,
+                   self.logn)
             PallasNTT.launches["negacyclic_mul"] += 1
         return olo.reshape(batch + (self.n,)), ohi.reshape(batch + (self.n,))

@@ -4,10 +4,12 @@ of node_fhe_accelerate_tpu/zk/curve.py).
 Points are (X, Y, Z) Jacobian digit planes with arbitrary batch axes, Z = 0
 for infinity, and every operation is branchless: the doubling/infinity
 cases of Jacobian addition are all computed and selected with masks, so a
-batch of point ops is one sequence of wide tensor ops.  On the card the
-field products run as kernels: point ops of at least 2048 same-shape points
-go to the digit-major K9 path (``pallas_jadd_t``/``pallas_jdbl_t``), the
-rest to ``Field.mul``, which is K10 on a CUDA tensor.
+batch of point ops is one sequence of wide tensor ops.  On the card
+(``point_op_path``) point ops of at least 2048 same-shape points go to the
+digit-major K9 path (``pallas_jadd_t``/``pallas_jdbl_t``), the rest over a
+plain ``Field`` to the point kernel, one launch an add or a double
+(``pallas_jadd``/``pallas_jdbl``); ``Field2`` and the CPU evaluate the
+formulas over the field object.
 
 The JAX package's ``jit``/``fori_loop``/``scan`` bodies are Python loops
 with static shifts here; PyTorch runs eagerly.
@@ -19,11 +21,13 @@ import os
 import numpy as np
 import torch
 
+from ..ops import digits_pallas as dp
 from ..ops import limbs as lb
 from .field import BLS12_381_FR, BN254_FR, Field, bls12_381_fq, bn254_fq
 from .field2 import Field2
 
-__all__ = ["Curve", "bn254_g1", "bls12_381_g1", "Point", "msm_chunk_spans"]
+__all__ = ["Curve", "bn254_g1", "bls12_381_g1", "Point", "msm_chunk_spans",
+           "point_op_path"]
 
 
 def msm_chunk_spans(n: int, max_chunk: int) -> list:
@@ -205,6 +209,19 @@ def jadd_formula(f, p, q, select, where_zero):
     return (X3, Y3, Z3)
 
 
+def point_op_path(device_type: str, plain_field: bool, k9_points: int) -> str:
+    """Which path ``Curve.add``/``double`` take: "k9" (the digit-major K9
+    point ops) when ``_pallas_geometry`` counts the points (at least 2048),
+    "kernel" (the point kernel, one launch an op) on a CUDA tensor over a
+    plain ``Field`` below that, else "formula" (``jadd_formula``/
+    ``jdbl_formula`` over the field object)."""
+    if k9_points:
+        return "k9"
+    if device_type == "cuda" and plain_field:
+        return "kernel"
+    return "formula"
+
+
 def _cat_points(*pts):
     return tuple(torch.cat([p[i] for p in pts]) for i in range(3))
 
@@ -292,18 +309,26 @@ class Curve:
             total *= d
         return total if total >= 2048 and total % 8 == 0 else 0
 
+    def _path(self, p, q=None) -> str:
+        return point_op_path(p[0].device.type, type(self.fq) is Field,
+                             self._pallas_geometry(p, q))
+
     def double(self, p):
         """dbl-2009-l for a=0: 3M + 5S."""
-        if self._pallas_geometry(p):
-            from ..ops.digits_pallas import pallas_jdbl_t
-            return pallas_jdbl_t(self.fq, p)
+        path = self._path(p)
+        if path == "k9":
+            return dp.pallas_jdbl_t(self.fq, p)
+        if path == "kernel":
+            return dp.pallas_jdbl(self.fq, p)
         return jdbl_formula(self.fq, p)
 
     def add(self, p, q):
         """add-2007-bl with doubling/infinity cases resolved by masks."""
-        if self._pallas_geometry(p, q):
-            from ..ops.digits_pallas import pallas_jadd_t
-            return pallas_jadd_t(self.fq, p, q)
+        path = self._path(p, q)
+        if path == "k9":
+            return dp.pallas_jadd_t(self.fq, p, q)
+        if path == "kernel":
+            return dp.pallas_jadd(self.fq, p, q)
         f = self.fq
         return jadd_formula(
             f, p, q, select=f.select,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the NTT kernels (csrc/ntt.cu: K6 forward, K7 inverse)
-goes, by ablation, on one GPU, and how they compare with another tree's.
+"""Where the time of the NTT kernels (csrc/ntt.cu: K6 forward, K7 inverse,
+K8 the fused ring product) goes, by ablation, on one GPU, and how they
+compare with another tree's.
 
     python3 scripts/ablate_ntt_kernels.py [--iters 20] [--seed 5]
         [--parent DIR]
@@ -11,8 +12,10 @@ beside the real kernels, copies of ``csrc/ntt.cu`` with one part switched
 off or changed, and times each, in turns, at the shapes of the paths:
 N = 4096 over P1 (forward B = 1536, inverse B = 512: TFHE_256 "crt"; the
 narrow form, doubles) and over P_EXT (forward B = 1536: the wide form,
-Shoup's products, at the same shape), and N = 256 over P_EXT (forward
-B = 2560, inverse B = 1280: TFHE_BOOT_128_K4 "ntt").  Parts switched off:
+Shoup's products, at the same shape), N = 256 over P_EXT (forward
+B = 2560, inverse B = 1280: TFHE_BOOT_128_K4 "ntt"), and K8 at N = 4096,
+B = 256 over P1 (its narrow form) and P_EXT (its wide form): the CRT ring
+product of TFHE_256; and at B = 1536 over P1.  Parts switched off:
 the modular product of either form (an add in its place), the lazy
 correction of the wide forward butterfly, the reduction of the narrow
 inverse's sums, the twiddle loads, the exchanges through shared memory or
@@ -23,7 +26,11 @@ a Montgomery product in place of Shoup's, the wide form for every
 modulus, the twiddle tables read from global memory instead of shared
 memory, the forward's stores straight from registers (16-byte stores at a
 64-byte stride across the warp) instead of staged through the exchange
-buffer, the inverse's stores staged too.  The ablated kernels compute wrong results; only their
+buffer, the inverse's stores staged too; for K8, its tables in global
+memory, both in shared memory (one block an SM at N = 4096), a and b
+transformed one after the other, the next pair prefetched during this
+pair's inverse, no cap of 128 registers (two blocks an SM); K8 also at
+B = 1536, where a block has pairs after its first.  The ablated kernels compute wrong results; only their
 times mean anything: base minus ablated is what the part costs where it
 is not hidden behind the others.  The times are device times of
 back-to-back launches (``timing.device_ms``).  Beside them, the device
@@ -83,11 +90,13 @@ ABLATIONS = {
     "without the reduction of the inverse's sums": {
         "x = reduce(__dadd_rn(u, v), m);": "x = __dadd_rn(u, v);"},
     "without the twiddle loads": {
-        "const ulonglong2 w = blk[g << kHb];":
-            "const ulonglong2 w = make_ulonglong2(m.q + g, m.q2 + h);"},
+        "const TW w = blk[g << kHb];":
+            "TW w;\n      memcpy(&w, &m, sizeof(TW));"},
     "without the exchanges": {
-        "    buf[swz(coeff<LOGN>(t, e, G::c_lo(FROM)))] = x[e];": "    ;",
-        "    x[e] = buf[swz(coeff<LOGN>(t, e, G::c_lo(TO)))];": "    ;"},
+        "      buf[k * kBuf + swz(coeff<LOGN>(t, e, G::c_lo(FROM)))] = x[k][e];":
+            "      ;",
+        "      x[k][e] = buf[k * kBuf + swz(coeff<LOGN>(t, e, G::c_lo(TO)))];":
+            "      ;"},
     "without the exchange barriers": {
         """  if constexpr (Geom<LOGN>::kT <= 32)
     __syncwarp();
@@ -105,13 +114,32 @@ ABLATIONS = {
     "only the loads and stores": COPY,
     "only the loads and stores, straight from registers": {**COPY,
                                                            **UNSTAGED},
+    "K8: tables in global memory": {
+        "kFwdShared = kNarrow<A> ? LOGN <= 13 : LOGN <= 12;":
+            "kFwdShared = false;",
+        "kInvShared = kNarrow<A> ? false : LOGN <= 12;":
+            "kInvShared = false;"},
+    "K8: both tables in shared memory": {
+        "kInvShared = kNarrow<A> ? false : LOGN <= 12;":
+            "kInvShared = LOGN <= 12;"},
+    "K8: a and b one after the other": {
+        "kPaired = kNarrow<A> && LOGN <= 12;": "kPaired = false;"},
+    "K8: with the prefetch of the next pair": {
+        "kPrefetch = false;": "kPrefetch = kNarrow<A>;"},
+    "K8: no cap of 128 registers": {
+        "kMinBlocks = kNarrow<A> && LOGN == 12 ? 2 : 1;": "kMinBlocks = 1;"},
 }
+# variants in which K8 takes its wide form below 2^46 too (its tables and
+# constants then take the wide form's)
+K8_WIDE = {"the wide form for every modulus"}
 # (kind, N, B, modulus name): the rows compared with --parent
 PARENT_ROWS = [("forward", 4096, 1536, "P1"), ("forward", 4096, 1536, "P2"),
                ("inverse", 4096, 512, "P1"), ("inverse", 4096, 512, "P2"),
                ("forward", 256, 2560, "P_EXT"),
                ("inverse", 256, 1280, "P_EXT"),
                ("negacyclic_mul", 4096, 256, "P1"),
+               ("negacyclic_mul", 4096, 256, "P2"),
+               ("negacyclic_mul", 4096, 256, "P_EXT"),
                ("forward", 1024, 8192, "Q_40_1"),
                ("forward", 16384, 512, "Q_60_1")]
 
@@ -150,8 +178,8 @@ def main() -> int:
     from node_fhe_accelerate_tpu_torch.core.params import Primes
     from node_fhe_accelerate_tpu_torch.core.torus import P1, P2, P_EXT
     from node_fhe_accelerate_tpu_torch.ops.ntt import NTTContext
-    from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import (NTT_LIB,
-                                                              PallasNTT)
+    from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import (
+        F64_MAX_Q, NTT_LIB, PallasNTT)
     from node_fhe_accelerate_tpu_torch.timing import cuda_ms, device_ms
 
     os.makedirs(OUT, exist_ok=True)
@@ -191,18 +219,41 @@ def main() -> int:
         calls[label] = (lo.data_ptr(), hi.data_ptr(), olo.data_ptr(),
                         ohi.data_ptr(), tw.data_ptr(), q, *pk.last_stage(),
                         inverse, b, pk.logn), (lo, hi, olo, ohi, tw)
+    # K8: its arguments in the narrow and the wide form (as the wrapper
+    # passes them)
+    mul_shapes = {"K8 N=4096 B=256 P1": (4096, 256, P1),
+                  "K8 N=4096 B=256 P_EXT": (4096, 256, P_EXT),
+                  "K8 N=4096 B=1536 P1": (4096, 1536, P1)}
+    mul_calls = {}
+    for label, (n, b, q) in mul_shapes.items():
+        pk = PallasNTT(NTTContext(n, q))
+        bufs = [*planes(b, n, q), *planes(b, n, q)]
+        bufs += [torch.empty_like(bufs[0]), torch.empty_like(bufs[1])]
+        for wide in (False, True):
+            narrow = q < F64_MAX_Q and not wide
+            tw = pk._tables(dev, narrow)
+            mul_calls[label, wide] = (
+                *[x.data_ptr() for x in bufs], tw[0].data_ptr(),
+                tw[1].data_ptr(), q, pk.ctx.q_inv_neg,
+                *pk.last_stage(1 if narrow else pk.ctx.r_mod_q), b,
+                pk.logn), (bufs, tw)
 
     def ms(name, label):
-        fn = libs[name].load().nfa_ntt_transform
-        call = calls[label][0]
+        if label in mul_shapes:
+            fn = libs[name].load().nfa_ntt_negacyclic_mul
+            call = mul_calls[label, name in K8_WIDE][0]
+        else:
+            fn = libs[name].load().nfa_ntt_transform
+            call = calls[label][0]
         return device_ms(lambda: _build.launch(fn, name, dev, *call),
                          args.iters)[0]
 
-    times = {name: {label: [] for label in shapes} for name in libs}
+    labels = list(shapes) + list(mul_shapes)
+    times = {name: {label: [] for label in labels} for name in libs}
     for _ in range(2):
         for name in libs:
             print(f"timing {name}", file=sys.stderr, flush=True)
-            for label in shapes:
+            for label in labels:
                 times[name][label].append(ms(name, label))
     for name, row in times.items():
         print(json.dumps({"variant": name, "ms": row}), flush=True)

@@ -1,7 +1,7 @@
-"""The ablation copies of scripts/ablate_cmux_kernels.py and
-scripts/ablate_ntt_kernels.py are made by replacing texts of
-csrc/cmux_common.cuh, csrc/cmux_step.cu, csrc/ladder_steps.cu and
-csrc/ntt.cu.  Their timing needs the card; the edits are checked here, so
+"""The ablation copies of scripts/ablate_cmux_kernels.py,
+scripts/ablate_ntt_kernels.py and scripts/ablate_point_ops.py are made by
+replacing texts of csrc/cmux_common.cuh, csrc/cmux_step.cu,
+csrc/ladder_steps.cu, csrc/ntt.cu and csrc/digits.cu.  Their timing needs the card; the edits are checked here, so
 that a change of the kernels that moves a replaced text fails on the CPU
 instead of on the card."""
 import importlib.util
@@ -20,6 +20,10 @@ _spec = importlib.util.spec_from_file_location(
                                        "ablate_ntt_kernels.py"))
 ablate_ntt = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ablate_ntt)
+_spec = importlib.util.spec_from_file_location(
+    "ablate_point_ops", os.path.join(ROOT, "scripts", "ablate_point_ops.py"))
+ablate_point = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ablate_point)
 
 
 @pytest.mark.parametrize("name", list(ablate.ABLATIONS))
@@ -57,3 +61,13 @@ def test_ntt_ablation_refuses_a_missing_text(monkeypatch):
                         {"no such text": ";"})
     with pytest.raises(RuntimeError, match="exactly once"):
         ablate_ntt.ablated_source("broken")
+
+
+@pytest.mark.parametrize("name", list(ablate_point.ABLATIONS))
+def test_point_ablation_edits_apply(name):
+    edits = ablate_point.ABLATIONS[name]
+    text = ablate_point.ablated_source(name)
+    with open(os.path.join(ablate_ntt.CSRC, "digits.cu")) as f:
+        assert (text != f.read()) == bool(edits)
+    for old, new in edits.items():
+        assert new in text and old not in text

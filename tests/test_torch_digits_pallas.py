@@ -21,9 +21,14 @@ little-endian integer of its digits): for G1
 with f = bn254_g1().fq, and for G2 the same formulas evaluated eagerly
 over bn254_g2().fq on P = bn254_g2().generator((8,)) and
 Q = jdbl(jdbl(P)) with the edge rows set as in
-tests/test_digits_pallas.py:136-156.  The ``slow`` tier runs those JAX
-calls live (~30 s of compile and eager dispatch on the CPU) and holds both
-the port and the committed vectors equal to them, plane for plane.
+tests/test_digits_pallas.py:136-156.  For BLS12-381 G1 (D=48) the vectors
+are the JAX package's Pallas point kernels ``pallas_jadd(f, P, Q)`` and
+``pallas_jdbl(f, P)`` (interpret mode, as tests/test_digits_pallas.py:47-83
+runs them) over ``bls12_381_g1().fq`` on the same edge-point set, made by
+the port's host fixed-base path.  The ``slow`` tier runs those JAX calls
+live (~30 s of compile and eager dispatch on the CPU for the formulas,
+~60 s for the Pallas kernels at D=32 and D=48) and holds both the port and
+the committed vectors equal to them, plane for plane.
 Tolerance: exact equality."""
 import json
 import pathlib
@@ -41,7 +46,8 @@ from node_fhe_accelerate_tpu.zk.curve_g2 import bn254_g2 as jax_bn254_g2
 from node_fhe_accelerate_tpu_torch.convert import points_from_numpy
 from node_fhe_accelerate_tpu_torch.ops import digits_pallas as dp
 from node_fhe_accelerate_tpu_torch.zk import field as tfield
-from node_fhe_accelerate_tpu_torch.zk.curve import (bn254_g1, jadd_formula,
+from node_fhe_accelerate_tpu_torch.zk.curve import (bls12_381_g1, bn254_g1,
+                                                    jadd_formula,
                                                     jdbl_formula)
 from node_fhe_accelerate_tpu_torch.zk.field2 import bn254_fq2
 
@@ -91,9 +97,9 @@ def test_plain_kernels_match_jax_field_mul(name):
     np.testing.assert_array_equal(dp.pallas_field_mul(tf, a, b).numpy(),
                                   want)
     half = len(xs) // 2
-    got = dp.pallas_field_mul_pairs(tf, [(a[:half], b[:half]),
-                                         (a[half:2 * half],
-                                          b[half:2 * half])])
+    got = dp._mul_pairs(dp.field_mul_reference, tf,
+                        [(a[:half], b[:half]),
+                         (a[half:2 * half], b[half:2 * half])])
     np.testing.assert_array_equal(torch.cat(got).numpy(), want[:2 * half])
     # the plain path counts no launch
     assert dp._mul_t_raw.launches == 0 and dp.pallas_field_mul.launches == 0
@@ -177,6 +183,57 @@ def test_g1_point_ops_match_jax_live():
         for name, got in ops.items():
             _assert_planes(got, want, name)
         assert _rows(want) == _want("g1", op)
+
+
+def _bls_edge_points():
+    """The edge-point set of tests/test_digits_pallas.py:53-63 on
+    BLS12-381 G1 (D=48), made by the port's host fixed-base path."""
+    tc = bls12_381_g1(device="cpu")
+    ks = [3, 7, 11, 19, 23, 5, 3, 12]
+    P = [x.clone() for x in tc.fixed_base_mul(ks, backend="host")]
+    Q = [x.clone() for x in tc.fixed_base_mul(ks[::-1], backend="host")]
+    P[2][5] = 0
+    for c_q, c_p in zip(Q, P):
+        c_q[6:8] = c_p[6:8]
+    Q[1][7] = tc.fq.neg(P[1][7])
+    return tc, tuple(P), tuple(Q)
+
+
+def test_bls_point_ops_match_jax_pallas():
+    """D=48: the point kernel's plain version (``pallas_jadd``/
+    ``pallas_jdbl`` on the CPU, ``jadd_reference``/``jdbl_reference``) and
+    every other route == the JAX package's Pallas point kernels."""
+    tc, P, Q = _bls_edge_points()
+    adds, dbls = _g1_ops(tc, P, Q)
+    adds["jadd_reference"] = dp.jadd_reference(tc.fq, P, Q)
+    dbls["jdbl_reference"] = dp.jdbl_reference(tc.fq, P)
+    for name, got in adds.items():
+        assert _rows(got) == _want("bls_g1", "add"), name
+    for name, got in dbls.items():
+        assert _rows(got) == _want("bls_g1", "dbl"), name
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("curve", ["g1", "bls_g1"])
+def test_point_kernel_plain_matches_jax_pallas_live(curve):
+    """The JAX package's ``pallas_jadd``/``pallas_jdbl`` (its K10 point
+    ops, interpret mode) run now at D=32 and D=48, against the port's
+    plain point kernel and the committed vectors."""
+    import jax.numpy as jnp
+    from node_fhe_accelerate_tpu.zk.curve import bls12_381_g1 as jax_bls
+    if curve == "g1":
+        tc, P, Q, (jc, jP, jQ) = _g1_edge_points()
+    else:
+        tc, P, Q = _bls_edge_points()
+        jc = jax_bls()
+        jP, jQ = (tuple(jnp.asarray(c.numpy()) for c in pt)
+                  for pt in (P, Q))
+    want_add = jdp.pallas_jadd(jc.fq, jP, jQ)
+    want_dbl = jdp.pallas_jdbl(jc.fq, jP)
+    _assert_planes(dp.pallas_jadd(tc.fq, P, Q), want_add, "pallas_jadd")
+    _assert_planes(dp.pallas_jdbl(tc.fq, P), want_dbl, "pallas_jdbl")
+    assert _rows(want_add) == _want(curve, "add")
+    assert _rows(want_dbl) == _want(curve, "dbl")
 
 
 def _g2_edge_points(f, P, dbl, neg):

@@ -30,7 +30,8 @@ from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import PallasNTT
 from node_fhe_accelerate_tpu_torch.ops import cmux as cmux_ops
 from node_fhe_accelerate_tpu_torch.ops import digits, limbs
 from node_fhe_accelerate_tpu_torch.ops.digits_pallas import (
-    _mul_t_raw, pallas_field_mul)
+    _mul_t_raw, jadd_reference, jdbl_reference, pallas_field_mul,
+    pallas_jadd, pallas_jdbl)
 from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
 from node_fhe_accelerate_tpu_torch.zk import curve as zk_curve
 from node_fhe_accelerate_tpu_torch.zk import field as zk_field
@@ -399,8 +400,16 @@ def test_ntt_transforms_match_plain(cuda_device, n, batch, q):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch,q", [(256, 37, P_EXT), (1024, 3, Q_40_1),
-                                       (8192, 2, Q_40_1)])
+                                       (8192, 2, Q_40_1)]
+                         + [(n, b, q) for n, b in ((256, 37), (4096, 5),
+                                                   (4096, 300), (8192, 3))
+                            for q in (P1, P2, P_EXT)
+                            if (n, q) != (256, P_EXT)]
+                         + [(4, 7, P1), (16, 5, Q_F64_MAX)])
 def test_ntt_negacyclic_mul_matches_plain(cuda_device, n, batch, q):
+    """K8 in both forms (doubles below 2^46, Shoup above) at ragged
+    batches, and at N=4096 over more pairs than resident blocks (264), so
+    that a block prefetches its next pair."""
     pk = PallasNTT(NTTContext(n, q))
     a = random_planes(n, batch, q, cuda_device, 12)
     b = random_planes(n, batch, q, cuda_device, 13)
@@ -501,18 +510,98 @@ def test_digit_kernels_match_plain(cuda_device, name, batch):
 
 @pytest.mark.cuda
 def test_device_msm_matches_host(cuda_device):
-    """A device MSM at n=256 (the Pippenger: K9 wide adds, K10 narrow ops)
-    == the host backend on the same inputs."""
+    """A device MSM at n=256 (the Pippenger: K9 wide adds, the point kernel
+    for the narrow ops) == the host backend on the same inputs."""
     c = zk_curve.bn254_g1(device=cuda_device)
     rng = np.random.default_rng(16)
     pts = c.fixed_base_mul([int(v) for v in rng.integers(1, 2 ** 30, 256)])
     sc = limbs.limbs_from_ints([int(v) for v in
                                 rng.integers(0, 2 ** 62, 256)], 8,
                                cuda_device)
-    before = (_mul_t_raw.launches, pallas_field_mul.launches)
+    before = (_mul_t_raw.launches, pallas_field_mul.launches,
+              pallas_jadd.launches, pallas_jdbl.launches)
     got = c.msm(sc, pts)
     assert _mul_t_raw.launches > before[0]
-    assert pallas_field_mul.launches > before[1]
+    # the narrow point ops are one point-kernel launch each, no single
+    # products: the Horner tail's 256 doubles and 33 adds, and the 5 adds
+    # of the scan over the 32 group totals (1024 points, below K9's 2048)
+    assert pallas_field_mul.launches == before[1]
+    assert (pallas_jadd.launches - before[2],
+            pallas_jdbl.launches - before[3]) == (33 + 5, 256)
     want = c.msm(sc, pts, backend="host")
     assert [int(v) for v in c.to_affine_ints(got)[:2]] == \
         [int(v) for v in c.to_affine_ints(want)[:2]]
+
+
+def edge_points(curve, batch, seed):
+    """(P, Q): points of ``curve`` from random scalars, with the edge rows
+    of jadd_formula first: P[0] at infinity, Q[1] = P[1] (the doubling
+    case), Q[2] = -P[2] (to infinity), Q[3] at infinity, P[4] and Q[4] both
+    at infinity -- as many as the batch holds."""
+    rng = np.random.default_rng(seed)
+    ks = [int(v) for v in rng.integers(1, 1 << 62, 2 * batch)]
+    P = [x.clone() for x in curve.fixed_base_mul(ks[:batch],
+                                                 backend="host")]
+    Q = [x.clone() for x in curve.fixed_base_mul(ks[batch:],
+                                                 backend="host")]
+    f = curve.fq
+    rows = list(range(min(batch, 5)))
+    for i in rows[1:3]:
+        for c in range(3):
+            Q[c][i] = P[c][i]
+    if len(rows) > 2:
+        Q[1][2] = f.neg(P[1][2])
+    for c, i in ((P[2], 0), (Q[2], 3), (P[2], 4), (Q[2], 4)):
+        if i < batch:
+            c[i] = 0
+    return tuple(P), tuple(Q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 32, 1000, 2047])
+@pytest.mark.parametrize("name", ["bn254_g1", "bls12_381_g1"])
+def test_point_kernel_matches_plain(cuda_device, name, batch):
+    """K10's point kernel (one launch a Jacobian add or double) == its plain
+    version, the level-stacked formulas over Field.mul_plain, on curve
+    points with the edge rows and on random canonical elements (the
+    algebra alone), D=32 and D=48; one launch each."""
+    curve = getattr(zk_curve, name)(device=cuda_device)
+    f = curve.fq
+    P, Q = edge_points(curve, batch, 17 + batch)
+    R = tuple(random_elements(f, batch, cuda_device, 18 + i)
+              for i in range(6))
+    for p, q in ((P, Q), (R[:3], R[3:])):
+        before = (pallas_jadd.launches, pallas_jdbl.launches,
+                  pallas_field_mul.launches)
+        add, dbl = pallas_jadd(f, p, q), pallas_jdbl(f, p)
+        torch.cuda.synchronize()
+        assert (pallas_jadd.launches, pallas_jdbl.launches,
+                pallas_field_mul.launches) == (before[0] + 1,
+                                               before[1] + 1, before[2])
+        assert same_planes(add, jadd_reference(f, p, q))
+        assert same_planes(dbl, jdbl_reference(f, p))
+    # Curve.add/double below 2048 points take the point kernel
+    before = pallas_jadd.launches
+    assert same_planes(curve.add(P, Q), jadd_reference(f, P, Q))
+    assert pallas_jadd.launches == before + 1
+    # and == jadd_formula/jdbl_formula evaluated over the field on the CPU
+    cpu = getattr(zk_curve, name)(device="cpu")
+    Pc, Qc = tuple(x.cpu() for x in P), tuple(x.cpu() for x in Q)
+    assert same_planes([x.cpu() for x in pallas_jadd(f, P, Q)],
+                       cpu.add(Pc, Qc))
+    assert same_planes([x.cpu() for x in pallas_jdbl(f, P)], cpu.double(Pc))
+
+
+@pytest.mark.cuda
+def test_point_kernel_broadcasts_and_refuses(cuda_device):
+    """Operands broadcast (expanded on the host, one launch); a digit count
+    other than the field's is refused."""
+    curve = zk_curve.bn254_g1(device=cuda_device)
+    f = curve.fq
+    P, Q = edge_points(curve, 8, 19)
+    q0 = tuple(x[5] for x in Q)
+    got = pallas_jadd(f, P, q0)
+    want = jadd_reference(f, P, tuple(x.expand_as(P[0]) for x in q0))
+    assert same_planes(got, want)
+    with pytest.raises(ValueError, match="digits"):
+        pallas_jdbl(zk_curve.bls12_381_g1(device=cuda_device).fq, P)

@@ -318,3 +318,24 @@ def test_exchanges_and_twiddle_reads_are_free_of_bank_conflicts(logn):
 
 def test_largest_modulus_keeps_lazy_values_in_64_bits():
     assert 4 * (MAX_Q - 1) < 1 << 64 <= 4 * MAX_Q
+
+
+@pytest.mark.parametrize("q", [P1, P2, (1 << 46) - (1 << 38) + 1],
+                         ids=["p1", "p2", "largest_narrow_q"])
+def test_narrow_pointwise_product_is_exact(q):
+    """K8's pointwise product in the narrow form, mul(a^, reduce(b^)): a^
+    and b^ anywhere the forward leaves them (below 12 q in size, < 2^50),
+    b^ reduced to at most q / 2 + 1 in size; the product is a^ b^ mod q
+    exactly and at most 0.75 q in size (``F64Form`` asserts both bounds)."""
+    assert q < F64_MAX_Q and 12 * q < 1 << 50
+    form = F64Form(q)
+    rng = np.random.default_rng(q % 1009)
+    edge = [0, 1, -1, q - 1, q, q + 1, 12 * q - 1, -(12 * q - 1),
+            6 * q + q // 2, -(q // 2)]
+    vals = edge + [int(v) for v in rng.integers(-(12 * q - 1), 12 * q, 40)]
+    for y in vals:
+        for w in vals[:len(edge)] + vals[len(edge)::7]:
+            wr = form._reduce1(float(w))
+            assert abs(wr) <= q / 2 + 1 and (int(wr) - w) % q == 0
+            r = form._mul1(float(y), wr)
+            assert r == int(r) and (int(r) - y * w) % q == 0

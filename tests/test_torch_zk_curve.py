@@ -132,3 +132,22 @@ def test_device_msm_paths_match_host(name):
     ks = [9, 2 ** 200 + 3]
     assert _affine(tc, tc.fixed_base_mul(ks, backend="device")) == \
         _affine(tc, tc.fixed_base_mul(ks, backend="host"))
+
+
+@pytest.mark.parametrize("device_type,plain_field,k9_points,path", [
+    ("cuda", True, 0, "kernel"), ("cuda", True, 2048, "k9"),
+    ("cuda", False, 0, "formula"), ("cuda", False, 4096, "k9"),
+    ("cpu", True, 0, "formula"), ("cpu", True, 8192, "k9")])
+def test_point_op_path(device_type, plain_field, k9_points, path):
+    """Curve.add/double's routing: the digit-major K9 ops wherever
+    _pallas_geometry counts the points, the point kernel on the card over a
+    plain Field below that, else the formulas over the field object."""
+    assert tcurve.point_op_path(device_type, plain_field, k9_points) == path
+
+
+def test_curve_routes_by_point_count_on_the_cpu():
+    c = tcurve.bn254_g1(device="cpu")
+    p = c.infinity((8,))
+    assert c._path(p) == "formula"
+    assert c._path(c.infinity((2048,))) == "k9"
+    assert c._path(p, c.infinity((1,))) == "formula"
