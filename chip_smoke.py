@@ -25,7 +25,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, in both of
    its forms, and against the big-integer oracle on a few rows), at the
    bootstrap's shapes
-   (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560), at every degree
+   (P1 and P2 at N=4096/B=1536, P_EXT at N=256/B=2560), at the BFV
+   stack's (the auxiliary primes of the rescale at N=1024 and 8192, Q_60_1
+   at N=8192, the product over Q_40_1 at N=1024 and Q_60_1 at N=8192), at
+   every degree
    from N=4 to 16384 at a ragged batch, at a batch of 1, N=4 and 16384
    over Q_60_1 and over the largest modulus they take (2^62 - 2^16 + 1),
    and refusing the prime just above 2^62; then, at batch 4096,
@@ -75,7 +78,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    port makes on the CPU from the same seed, verifying, and refused once
    t_hat is tampered; each MSM is also held equal to the host's result by
    projective equality on the card (``Curve.eq``: 8 launches of K10's
-   single product, which no MSM or proof launches any more);
+   single product, which no MSM or proof launches any more); the MSMs
+   inside the band 32 <= n_pad <= 1024 (BLS12-381 at n=1024, the proof's
+   at n=256) race the Pippenger against the ladders once, before the
+   counts (``Curve.msm_race``), each candidate's time must be finite, and
+   the selection is printed;
+   then the slice's entry and the BFV stack, counts likewise: the default
+   constructor ``TfheEngine(TFHE_BOOT_128_K4())`` ("auto") at batch 4096,
+   its race's ``selection_table`` (seconds per call of "pallas" and
+   "mxu", each finite, the winner a kernel backend) and one
+   decode-checked bootstrap routed to the winner, bit-equal
+   to the winner named explicitly and, rows 0-3, to the port on the CPU;
+   the ballot shape of
+   utils/bench_suite.py (N=1024, q=Q_40_1, t=64, noise from the parameter
+   set): 3-of-5 threshold keys and a public key from a seeded generator,
+   4096 one-hot ballots over 4 candidates encrypted (one K8 launch each;
+   ballot 0 bit-equal to the port on the CPU from the same generator
+   state), their ``batch_add`` tally decoded to the counts mod t, also
+   3-of-5 through ``threshold``, 16 ``encrypt_with_proof`` that verify
+   and a tampered ballot refused, and the tally's c0 through
+   ``serialize_polynomial`` with LZ4 and back, ``quick_verify`` refusing
+   a flipped byte; and BFV_128_SIMD's first modulus (N=8192, Q_60_1,
+   t=65537): keys with a relin key, 8 ``multiply_relin_rescale`` of sparse
+   messages (each K6/K7 on the 3 auxiliary primes and for relinearize),
+   each decoded to the numpy negacyclic product mod t, product 0 bit-equal
+   to the port on the CPU from the same generator state;
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
    the NTT kernels as device time of back-to-back launches, a spin kernel
@@ -87,6 +114,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    split into its NTT launches and the plain work around them, K10's point
    kernel at B = 1 and 32 (device time back to back and a call with the
    host's wrapper) beside the launch floor (an empty kernel back to back),
+   the ballots encrypted per second and the tally's seconds, one
+   ``multiply_relin_rescale`` at N=8192 split into its NTT launches, the
+   digit work of RescaleMultiplier and the rest, and by device kernel
+   under torch.profiler,
    the wall time of msm_bn254_4096, its split by point op and width, and,
    within one call under torch.profiler, the device time and launches of
    K9, K10's single product and point kernel and the other kernels and the
@@ -101,6 +132,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -144,6 +176,14 @@ def modmul_rate(q, mul_rate, fp64_rate):
             + (fp64_rate / 6 if q < 1 << 46 else 0))
 
 
+# the BFV rings (N, q, t): the ballot shape of utils/bench_suite.py (N=1024,
+# q = Q_40_1, t = 64) and BFV_128_SIMD's first modulus (N=8192, Q_60_1,
+# t = 65537), as EncryptionEngine takes it
+BFV_RINGS = ((1024, 1095216660481, 64), (8192, 1152921504606584833, 65537))
+BALLOTS = 4096
+CANDIDATES = 4
+PROOFS = 16
+SIMD_PRODUCTS = 8
 MSM_N = 4096             # the JAX suite's msm_bn254_4096 row
 MSM_BLS_N = 1024
 BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
@@ -155,6 +195,18 @@ BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
 # (K9, K10 products, point-kernel adds, point-kernel doubles)
 PIPPENGER_LAUNCHES = {4096: (24 * (3 + 9 + 1 + 8), 0, 33, 256),
                       1024: (24 * (3 + 7 + 1 + 8), 0, 33, 256)}
+
+
+def rescale_bound_bits(n, q):
+    """Bits of the auxiliary CRT basis of RescaleMultiplier(n, q, t)."""
+    return n.bit_length() + 2 * q.bit_length() + 2
+
+
+# launches of one Pippenger-vs-ladder band candidate at n = 1024 (K9, K10
+# products, point-kernel adds, point-kernel doubles): the ladder is a
+# scalar_mul at width 1024 (the point kernel: 14 table adds, 64 rounds of 4
+# doubles and an add) and 10 adds of the tree reduction
+LADDER_LAUNCHES = {1024: (0, 0, 14 + 64 + 10, 256)}
 
 
 def variant(name: str) -> str:
@@ -329,6 +381,19 @@ def chained(eng, ct, key, tp, count):
     return outs, secs
 
 
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_race(path, sel):
+    """A band race on the card: both candidates are kernel paths, so each
+    must have run (a time that is finite)."""
+    if not all(math.isfinite(v) for v in sel["timings"].values()):
+        raise AssertionError(f"phase 4: {path} race {sel}: a candidate did "
+                             "not run")
+
+
 def same_lwe(x, y):
     import torch
     return torch.equal(x.a, y.a) and torch.equal(x.b, y.b)
@@ -349,7 +414,14 @@ def main() -> int:
         TfheParams)
     from node_fhe_accelerate_tpu_torch.core.keycache import (
         deserialize_bootstrap_key)
-    from node_fhe_accelerate_tpu_torch.core.params import Primes
+    from node_fhe_accelerate_tpu_torch.core import serializer, threshold
+    from node_fhe_accelerate_tpu_torch.core.bfv_mul import aux_prime_chain
+    from node_fhe_accelerate_tpu_torch.core.encrypt import EncryptionEngine
+    from node_fhe_accelerate_tpu_torch.core.keys import KeyManager
+    from node_fhe_accelerate_tpu_torch.core.params import (
+        BFV_128_SIMD, FHEScheme, ParameterSet, Primes)
+    from node_fhe_accelerate_tpu_torch.core.verifiable import (
+        VerifiableEncryption)
     from node_fhe_accelerate_tpu_torch.core.torus import P1, P2, P_EXT
     from node_fhe_accelerate_tpu_torch.ops import cmux, ladder
     from node_fhe_accelerate_tpu_torch.ops._build import build_all
@@ -595,6 +667,40 @@ def main() -> int:
         log(f"phase 2 ntt negacyclic_mul {label}: rows 0-2 == "
             "negacyclic_mul_np")
     del a, c, fa, back, got
+    # the BFV slice's shapes: K6/K7 over the auxiliary primes of the
+    # rescale multiplier at the ballot ring (N=1024) and BFV_128_SIMD's
+    # first modulus (N=8192), at the batches RescaleMultiplier gives them
+    # (4 operands forward, 3 products inverse), and over Q_60_1 at N=8192
+    # at relinearize's (3 forward, 2 inverse); K8 over Q_40_1 at N=1024
+    # (narrow form) and over Q_60_1 at N=8192 (wide form), at 1 and 2 rows
+    # (a phase, an encryption's two products)
+    bfv_ntt = [(deg, pr, 4, 3) for deg, qq, tt in BFV_RINGS
+               for pr in aux_prime_chain(deg, rescale_bound_bits(deg, qq))]
+    bfv_ntt.append((8192, q60, 3, 2))
+    for deg, pr, b_fwd, b_inv in bfv_ntt:
+        pk = pntt(deg, pr)
+        a = rand_planes(b_fwd, deg, pr)
+        fa = pk.forward(a)
+        check_planes(f"ntt forward BFV q={pr} N={deg}", fa,
+                     pk.ntt.forward(a))
+        check_planes(f"ntt inverse BFV q={pr} N={deg}", pk.inverse(fa),
+                     a)
+        fb = rand_planes(b_inv, deg, pr)
+        check_planes(f"ntt inverse BFV q={pr} N={deg} products",
+                     pk.inverse(fb), pk.ntt.inverse(fb))
+    for deg, qq, _ in BFV_RINGS:
+        pk = pntt(deg, qq)
+        for rows in (1, 2):
+            a, c = rand_planes(rows, deg, qq), rand_planes(rows, deg, qq)
+            got = pk.negacyclic_mul(a, c)
+            check_planes(f"ntt negacyclic_mul BFV q={qq} N={deg} "
+                         f"({'narrow' if qq < (1 << 46) else 'wide'} form)",
+                         got, pk.ntt.negacyclic_mul(a, c))
+        an, cn, gn = u64_to_np(a), u64_to_np(c), u64_to_np(got)
+        if not (gn[0] == negacyclic_mul_np(an[0], cn[0], qq)).all():
+            raise AssertionError(f"ntt negacyclic_mul BFV q={qq}: row 0 != "
+                                 "the big-integer oracle")
+    del a, c, fa, fb, got
     pk4 = TFHE_BOOT_128_K4()
     with open(K4_BLOB, "rb") as f:
         bsk = deserialize_bootstrap_key(f.read(), pk4, device=dev)
@@ -623,7 +729,8 @@ def main() -> int:
     check_steps("K4", acc, rot, row, slabs_row, base_log)
     pl2 = TFHE_BOOT_128_L2()
     short = 4
-    e2 = TfheEngine(dataclasses.replace(pl2, n_lwe=short), device=dev)
+    e2 = TfheEngine(dataclasses.replace(pl2, n_lwe=short),
+                    ext_backend="pallas", device=dev)
     g2 = e2.generate_bootstrap_key(gen, e2.lwe_keygen(gen),
                                    e2.glwe_keygen(gen)).ggsw_i8
     acc2 = random_u32(gen, (BATCH, pl2.glwe_dim + 1, pl2.poly_degree))
@@ -735,7 +842,7 @@ def main() -> int:
     del outs, lwe, bsk
 
     # ---- phase 4: the main paths at full width
-    eng = TfheEngine(pk4, device=dev)          # ext_backend="pallas"
+    eng = TfheEngine(pk4, ext_backend="pallas", device=dev)
     t0 = time.perf_counter()
     lwe_sk = eng.lwe_keygen(gen)
     glwe_sk = eng.glwe_keygen(gen)
@@ -1002,12 +1109,28 @@ def main() -> int:
         svals = [int(v) for v in
                  np.random.default_rng(7).integers(1, 1 << 62, n_pts)]
         scal = limbs_from_ints(svals, 8, dev)
+        winner = "pippenger"
+        if n_pts <= 1024:
+            # inside the band: the Pippenger and the ladders race once
+            # (here, outside the counts), then the winner runs
+            disp, op = curve.msm_race()
+            t0 = time.perf_counter()
+            winner = disp.selection_for(op, scal, pts)
+            race_s = time.perf_counter() - t0
+            (sel,) = [v for k, v in disp.selection_table().items()
+                      if k[0] == op]
+            check_race(f"msm {cname} n={n_pts}", sel)
+            log(f"phase 4: msm {cname} n={n_pts} band selection: {winner} "
+                f"(race {race_s:.3f} s; seconds per call: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sel["timings"].items())
+                + ")")
         zero_counts()
         t0 = time.perf_counter()
         res = curve.msm(scal, pts)
         torch.cuda.synchronize()
         msm_s = time.perf_counter() - t0
-        k9, k10, jadd, jdbl = PIPPENGER_LAUNCHES[n_pts]
+        k9, k10, jadd, jdbl = (PIPPENGER_LAUNCHES if winner == "pippenger"
+                               else LADDER_LAUNCHES)[n_pts]
         got = expect_counts(f"msm {cname} n={n_pts}", digits_mul_t=k9,
                             digits_mul=k10, digits_jadd=jadd,
                             digits_jdbl=jdbl)
@@ -1032,8 +1155,9 @@ def main() -> int:
             launches["digits_mul"] = got_eq["digits_mul"]
         msm_runs[cname] = (curve, scal, pts, msm_s)
         log(f"phase 4: msm {cname} n={n_pts}: fixed_base_mul on the card "
-            f"{fbm_s:.3f} s (== host table); msm {msm_s:.4f} s, == host "
-            f"Pippenger ({host_s:.2f} s); K9 launches {got['digits_mul_t']}, "
+            f"{fbm_s:.3f} s (== host table); msm ({winner}) {msm_s:.4f} s, "
+            f"== host Pippenger ({host_s:.2f} s); K9 launches "
+            f"{got['digits_mul_t']}, "
             f"K10 products {got['digits_mul']}, point kernel adds "
             f"{got['digits_jadd']} and doubles {got['digits_jdbl']}; "
             f"Curve.eq == host on the card, K10 products "
@@ -1049,6 +1173,21 @@ def main() -> int:
         gens = BulletproofsGens.generate(curve, BP_BITS)
         prover = BulletproofsProver(curve, rng_seed=args.seed + 3)
         blinding = prover.random_scalar()
+        if where == "cuda":
+            # every MSM of the proof pads to n=256, inside the band: race
+            # this curve's candidates once, outside the timed prove
+            disp, op = curve.msm_race()
+            pts256 = curve.fixed_base_mul(list(range(1, 257)),
+                                          backend="host")
+            sc256 = limbs_from_ints(list(range(7, 7 + 256)), 8, dev)
+            winner256 = disp.selection_for(op, sc256, pts256)
+            (sel,) = [v for k, v in disp.selection_table().items()
+                      if k[0] == op]
+            check_race("msm bn254 n=256", sel)
+            log(f"phase 4: msm bn254 n=256 band selection: {winner256} "
+                "(seconds per call: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sel["timings"].items())
+                + ")")
         com = prover.commit(value, blinding, gens)
         zero_counts()
         t0 = time.perf_counter()
@@ -1068,10 +1207,11 @@ def main() -> int:
             raise AssertionError(f"phase 4: the 64-bit proof made on {where} "
                                  "does not verify")
         if where == "cuda":
-            # the proof's MSMs and ladders and the verifier's MSM run K9
-            # and the point kernel
-            if not all(path_counts[k] for k in
-                       ("digits_mul_t", "digits_jadd", "digits_jdbl")) \
+            # the proof's MSMs and ladders and the verifier's MSM run the
+            # point kernel, and K9 when the Pippenger won the band race
+            need = ("digits_jadd", "digits_jdbl") + (
+                ("digits_mul_t",) if winner256 == "pippenger" else ())
+            if not all(path_counts[k] for k in need) \
                     or any(v for k, v in path_counts.items()
                            if not k.startswith("digits")):
                 raise AssertionError(f"phase 4: range proof launches "
@@ -1098,6 +1238,248 @@ def main() -> int:
         f"verifies on both; prove {bp_secs['cuda'][0]:.3f} s on the card, "
         f"{bp_secs['cpu'][0]:.3f} s on the CPU; verify "
         f"{bp_secs['cuda'][1]:.3f} s / {bp_secs['cpu'][1]:.3f} s")
+
+    # the default constructor, TfheEngine(params): "auto" races "pallas"
+    # and "mxu" on the first bootstrap of a batch shape (here, outside every
+    # timed loop), then routes every bootstrap of that shape to the winner
+    eng_auto = TfheEngine(pk4)
+    if eng_auto.backend != "pallas" or eng_auto.dispatcher is None:
+        raise AssertionError(f"phase 4: TfheEngine(params) resolved to "
+                             f"{eng_auto.backend!r} without a race")
+    t0 = time.perf_counter()
+    eng_auto.bootstrap_with_test_poly(ct0, key, tp)
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    (sel,) = eng_auto.dispatcher.selection_table().values()
+    winner = sel["winner"]
+    log(f"phase 4: auto at batch {BATCH}: race and first call {race_s:.2f} "
+        f"s; selection_table: winner {winner}, seconds per call " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sel["timings"].items()))
+    # every candidate ran (a kernel that fails raises out of the race), and
+    # on the card a kernel backend wins: "mxu" is the plain contraction
+    if not all(math.isfinite(v) for v in sel["timings"].values()) \
+            or winner not in ("pallas", "pallas_fused"):
+        raise AssertionError(f"phase 4: auto race {sel}: a candidate did not "
+                             "run, or the plain \"mxu\" won")
+    zero_counts()
+    (out_auto,), secs = chained(eng_auto, ct0, key, tp, 1)
+    expect_counts("auto", **{"pallas": {"cmux_step": pk4.n_lwe},
+                             "pallas_fused": {"ladder_tiles": 1}}[winner])
+    expect_decode("auto", out_auto)
+    want_auto = TfheEngine(pk4, ext_backend=winner).bootstrap_with_test_poly(
+        ct0, key, tp)
+    if not same_lwe(out_auto, want_auto):
+        raise AssertionError(f"phase 4: auto differs from {winner} named "
+                             "explicitly")
+    # rows 0-3 against the port on the CPU ("auto" is "mxu" there), on the
+    # same key rows and ciphertexts
+    rows_c = slice(0, 4)
+    key_cpu = dataclasses.replace(
+        key, ggsw_i8=key.ggsw_i8.cpu(), ksk_a=key.ksk_a.cpu(),
+        ksk_b=key.ksk_b.cpu(), ggsw_kslabs=None)
+    eng_cpu = TfheEngine(pk4, device="cpu")
+    got_cpu = eng_cpu.bootstrap_with_test_poly(
+        LweCiphertext(a=ct0.a[rows_c].cpu(), b=ct0.b[rows_c].cpu()),
+        key_cpu, tp.cpu())
+    if not (torch.equal(got_cpu.a, out_auto.a[rows_c].cpu())
+            and torch.equal(got_cpu.b, out_auto.b[rows_c].cpu())):
+        raise AssertionError("phase 4: auto rows 0-3 != the port on the CPU")
+    rates["auto"] = BATCH / secs[0]
+    log(f"phase 4: auto, 1 bootstrap of {BATCH} routed to {winner}: "
+        f"{secs[0]:.4f} s -> {rates['auto']:.1f} bootstraps/s; decode ok; "
+        f"== {winner} named explicitly (bit-exact); rows 0-3 == the port "
+        f"on the CPU ({eng_cpu.backend}, bit-exact)")
+    del out_auto, want_auto, key_cpu, eng_cpu, got_cpu
+
+    # the ballot shape (utils/bench_suite.py, the voting preset's RLWE
+    # ring): 3-of-5 threshold keys and a public key of their master secret
+    # from a seeded generator, one-hot ballots over the candidates
+    # encrypted with the public key, their tally, decrypted with the master
+    # secret and 3-of-5, proofs of correct encryption, and the tally's
+    # polynomial through the LZ4 codec
+    ballot_p = ParameterSet(
+        scheme=FHEScheme.TFHE, poly_degree=1024, moduli=[Primes.Q_40_1],
+        lwe_dimension=630, lwe_noise_std=3.2e-11, glwe_dimension=1,
+        decomp_base_log=23, decomp_level=1, plaintext_modulus=64)
+    state_b = torch.Generator(device="cuda").manual_seed(
+        args.seed + 4).get_state()
+
+    def ballot_setup(device):
+        g = torch.Generator(device="cuda")
+        g.set_state(state_b)
+        e = EncryptionEngine(ballot_p, device=device)
+        tk = threshold.generate_threshold_keys(g, e.ring, 3, 5)
+        pk = KeyManager(ballot_p, e.ring).generate_public_key(g,
+                                                              tk.master_sk)
+        return e, tk, pk, g
+
+    choices = np.random.default_rng(11).integers(0, CANDIDATES, BALLOTS)
+    onehots = np.eye(CANDIDATES, dtype=np.uint64)[choices]
+    zero_counts()
+    eb, tkb, pkb, gb = ballot_setup(dev)
+    t0 = time.perf_counter()
+    ballots = [eb.encrypt(gb, onehots[i], pkb) for i in range(BALLOTS)]
+    torch.cuda.synchronize()
+    ballot_s = time.perf_counter() - t0
+    got = expect_counts("ballots", ntt_negacyclic_mul=1 + BALLOTS)
+    bfv_counts = {"ballot keygen + encrypt": nonzero(got)}
+    e_cpu, _, pk_cpu, g_cpu = ballot_setup("cpu")
+    first_cpu = e_cpu.encrypt(g_cpu, onehots[0], pk_cpu)
+    for f in ("c0", "c1"):
+        if not np.array_equal(u64_to_np(getattr(ballots[0], f)),
+                              u64_to_np(getattr(first_cpu, f))):
+            raise AssertionError(f"phase 4: ballot 0 {f} on the card != the "
+                                 "port on the CPU from the same state")
+    zero_counts()
+    t0 = time.perf_counter()
+    tally = eb.batch_add(ballots)
+    torch.cuda.synchronize()
+    tally_s = time.perf_counter() - t0
+    expect_counts("tally")
+    counts_t = np.bincount(choices, minlength=CANDIDATES) % eb.t
+    zero_counts()
+    dec, budget = eb.decrypt(tally, tkb.master_sk, CANDIDATES)
+    parts = [threshold.partial_decrypt(eb.ring, tally.c1, tkb.shares[i])
+             for i in (0, 2, 4)]
+    dec_th = eb.decode(threshold.combine_partial_decryptions(
+        eb.ring, tally.c0, parts, 3), CANDIDATES)
+    bfv_counts["tally decrypt + 3-of-5"] = nonzero(expect_counts(
+        "tally decryption", ntt_negacyclic_mul=1 + 3))
+    if not (np.array_equal(dec, counts_t) and np.array_equal(dec_th,
+                                                             counts_t)):
+        raise AssertionError(f"phase 4: tally decoded {dec.tolist()} / "
+                             f"3-of-5 {dec_th.tolist()}, counts mod t "
+                             f"{counts_t.tolist()}")
+    ve = VerifiableEncryption(eb)
+    zero_counts()
+    proofs_ok = 0
+    for i in range(PROOFS):
+        ct_p, proof_p = ve.encrypt_with_proof(gb, int(choices[i]), pkb)
+        proofs_ok += ve.verify(ct_p, proof_p, pkb)
+    bfv_counts["16 proofs + verify"] = nonzero(expect_counts(
+        "proofs", ntt_negacyclic_mul=PROOFS * (3 + 2)))
+    if proofs_ok != PROOFS:
+        raise AssertionError(f"phase 4: {PROOFS - proofs_ok} proofs of "
+                             "correct encryption did not verify")
+    if ve.verify(eb.add_plain(ct_p, [1]), proof_p, pkb):
+        raise AssertionError("phase 4: a proof verified a tampered ballot")
+    tally_np = u64_to_np(tally.c0)
+    blob = serializer.serialize_polynomial(
+        tally_np, serializer.Magic.BALLOT, modulus=eb.q,
+        compression=serializer.CompressionType.LZ4)
+    _, back = serializer.deserialize_polynomial(blob, serializer.Magic.BALLOT)
+    if not np.array_equal(back, tally_np):
+        raise AssertionError("phase 4: the tally polynomial did not come "
+                             "back from its LZ4 blob")
+    flipped = bytearray(blob)
+    flipped[len(blob) // 2] ^= 1
+    try:
+        serializer.quick_verify(bytes(flipped), serializer.Magic.BALLOT)
+    except serializer.SerializationError:
+        pass
+    else:
+        raise AssertionError("phase 4: quick_verify took a flipped byte")
+    rates["ballots encrypted"] = BALLOTS / ballot_s
+    log(f"phase 4: ballots (N=1024, q=Q_40_1, t=64, noise std "
+        f"{eb._noise_std:.3f}): {BALLOTS} one-hot ballots over {CANDIDATES} "
+        f"candidates encrypted in {ballot_s:.3f} s "
+        f"({rates['ballots encrypted']:.1f} ballots/s); ballot 0 == the "
+        f"port on the CPU from the same generator state (bit-exact); tally "
+        f"of {BALLOTS} in {tally_s:.4f} s, decoded {dec.tolist()} == counts "
+        f"mod t, 3-of-5 threshold decryption (shares 1, 3, 5) the same; "
+        f"noise budget {budget:.2f} bits; {PROOFS} proofs of encryption "
+        f"verify, a tampered ballot refused; tally c0 through "
+        f"serialize_polynomial (41-bit packing, LZ4): {len(blob)} bytes, "
+        f"back equal, quick_verify refuses a flipped byte; launches "
+        f"{bfv_counts}")
+    del ballots, first_cpu, e_cpu
+
+    # BFV_128_SIMD's first modulus as EncryptionEngine takes it (N=8192,
+    # Q_60_1, t=65537): keys with a relinearization key (digits of 2^20 at
+    # the preset's 3 levels: the preset's 2^60 gadget would leave the whole
+    # of c2 as one digit, whose product with the key noise swamps Delta),
+    # then products of sparse random messages (8 coefficients below 2^8)
+    # through multiply_relin_rescale, each decoded against the numpy
+    # negacyclic product mod t
+    simd_p = BFV_128_SIMD()
+    state_s = torch.Generator(device="cuda").manual_seed(
+        args.seed + 5).get_state()
+    rng_s = np.random.default_rng(13)
+    n_s, t_s = simd_p.poly_degree, simd_p.plaintext_modulus
+
+    def sparse_message():
+        # 8 coefficients below 2^8: the product's noise term
+        # (q mod t) * k * m grows with the coefficients, and at the full
+        # range of t it leaves ~3 bits of budget
+        m = np.zeros(n_s, dtype=np.uint64)
+        m[rng_s.choice(n_s, 8, replace=False)] = rng_s.integers(0, 256, 8)
+        return m
+
+    def negacyclic_mod_t(a, b):
+        out = np.zeros(n_s, dtype=object)
+        for i in np.nonzero(a)[0]:
+            for j in np.nonzero(b)[0]:
+                k = int(i + j)
+                out[k % n_s] += (-1 if k >= n_s else 1) * int(a[i]) * int(b[j])
+        return (out % t_s).astype(np.uint64)
+
+    def simd_setup(device):
+        g = torch.Generator(device="cuda")
+        g.set_state(state_s)
+        e = EncryptionEngine(simd_p, device=device)
+        km = KeyManager(simd_p, e.ring)
+        sk = km.generate_secret_key(g)
+        pk = km.generate_public_key(g, sk)
+        rlk = km.generate_relin_key(g, sk, decomp_base_log=20)
+        return e, sk, pk, rlk, g
+
+    msgs_s = [(sparse_message(), sparse_message())
+              for _ in range(SIMD_PRODUCTS)]
+    zero_counts()
+    es, sks, pks, rlks, gs = simd_setup(dev)
+    es.rescaler                 # its auxiliary NTT contexts, built once
+    cts_s = [(es.encrypt(gs, a, pks), es.encrypt(gs, b, pks))
+             for a, b in msgs_s]
+    torch.cuda.synchronize()
+    bfv_counts_s = {"keygen + encrypt": nonzero(expect_counts(
+        "SIMD keygen + encrypt",
+        ntt_negacyclic_mul=1 + 1 + rlks.decomp_level + 2 * SIMD_PRODUCTS))}
+    zero_counts()
+    t0 = time.perf_counter()
+    prods = [es.multiply_relin_rescale(a, b, rlks) for a, b in cts_s]
+    torch.cuda.synchronize()
+    simd_s = time.perf_counter() - t0
+    n_aux = len(es.rescaler.aux_primes)
+    bfv_counts_s["multiply_relin_rescale"] = nonzero(expect_counts(
+        "SIMD multiply_relin_rescale",
+        ntt_forward=SIMD_PRODUCTS * (n_aux + 3),
+        ntt_inverse=SIMD_PRODUCTS * (n_aux + 1)))
+    for i, ((a, b), pr) in enumerate(zip(msgs_s, prods)):
+        vals, budget_s = es.decrypt(pr, sks, n_s)
+        wrong = int((vals != negacyclic_mod_t(a, b)).sum())
+        if wrong:
+            raise AssertionError(f"phase 4: SIMD product {i} decoded "
+                                 f"{wrong} coefficients wrong")
+    e_c, sk_c, pk_c, rlk_c, g_c = simd_setup("cpu")
+    c_a, c_b = e_c.encrypt(g_c, msgs_s[0][0], pk_c), \
+        e_c.encrypt(g_c, msgs_s[0][1], pk_c)
+    t0 = time.perf_counter()
+    prod_cpu = e_c.multiply_relin_rescale(c_a, c_b, rlk_c)
+    cpu_mul_s = time.perf_counter() - t0
+    for f in ("c0", "c1"):
+        if not np.array_equal(u64_to_np(getattr(prods[0], f)),
+                              u64_to_np(getattr(prod_cpu, f))):
+            raise AssertionError(f"phase 4: SIMD product 0 {f} on the card "
+                                 "!= the port on the CPU from the same "
+                                 "state")
+    log(f"phase 4: BFV_128_SIMD first modulus (N=8192, Q_60_1, t=65537, "
+        f"{n_aux} auxiliary primes, relin digits 2^20 x "
+        f"{rlks.decomp_level}): {SIMD_PRODUCTS} multiply_relin_rescale in "
+        f"{simd_s:.3f} s, each decoded == the numpy negacyclic product mod "
+        f"t (last noise budget {budget_s:.2f} bits); product 0 == the port "
+        f"on the CPU from the same generator state (bit-exact; "
+        f"{cpu_mul_s:.2f} s there); launches {bfv_counts_s}")
+    del e_c, sk_c, pk_c, rlk_c, c_a, c_b, prod_cpu
 
     # ---- phase 5: timings
     lvl, planes = pk4.pbs_level, row.shape[-2]
@@ -1248,6 +1630,99 @@ def main() -> int:
         f"{100 * kernel_ms / split['step']:.1f}% of the step; " + "; ".join(
             f"{k} {v:.4f} ms ({100 * v / split['step']:.1f}%)"
             for k, v in split.items() if k != "step"))
+
+    # BFV: the ballots' and the tally's rates from phase 4, and one
+    # multiply_relin_rescale at N=8192 by CUDA events, split into its NTT
+    # launches (per auxiliary prime one forward of the four lifted operands
+    # and one inverse of the three products; relinearize's three forward
+    # and one inverse over Q_60_1), the digit work of RescaleMultiplier
+    # (CRT recombination and rescale: conv_full and exact_norm, whose carry
+    # lookahead is two cummax scans) and the rest; then one call under
+    # torch.profiler, by device kernel
+    rs = es.rescaler
+    c_a, c_b = cts_s[0]
+    opnds = (c_a.c0, c_a.c1, c_b.c0, c_b.c1)
+    lifted = [[rs._lift_centered(x, i) for i in range(n_aux)]
+              for x in opnds]
+    residues = rs.aux.tensor_residues(lifted)
+    deg2 = es.multiply_rescale(c_a, c_b)
+    fwd_in = [rand_planes(4, n_s, pr) for pr in rs.aux_primes]
+    inv_in = [rand_planes(3, n_s, pr) for pr in rs.aux_primes]
+    rel_in = rand_planes(3, n_s, es.q)
+    rel_inv = rand_planes(2, n_s, es.q)
+
+    def bfv_ntts():
+        for ntt, a, b in zip(rs.aux.ntt, fwd_in, inv_in):
+            ntt.forward(a)
+            ntt.inverse(b)
+        for _ in range(3):
+            es.ring.pntt.forward(rel_in)
+        es.ring.pntt.inverse(rel_inv)
+
+    def digit_work():
+        for comp in range(3):
+            rs._rescale_digits(*rs.aux.centered([r[comp] for r in residues]))
+
+    bfv_parts = {
+        "multiply_relin_rescale": lambda: es.multiply_relin_rescale(
+            c_a, c_b, rlks),
+        "NTT launches": bfv_ntts,
+        "digit work (CRT + rescale)": digit_work,
+        "lift to the auxiliary primes": lambda: [
+            [rs._lift_centered(x, i) for i in range(n_aux)] for x in opnds],
+        "relinearize": lambda: es.relinearize(deg2, rlks),
+    }
+    bfv_split = {k: cuda_ms(f, 5, warmup=1) for k, f in bfv_parts.items()}
+    ntt_back_ms = device_ms(bfv_ntts, 5)[0]
+    total_ms = bfv_split["multiply_relin_rescale"]
+    rest_ms = total_ms - bfv_split["NTT launches"] - \
+        bfv_split["digit work (CRT + rescale)"]
+    log(f"phase 5: BFV ballots {rates['ballots encrypted']:.1f} ballots/s "
+        f"(N=1024, one encrypt a call, {BALLOTS} calls); tally of "
+        f"{BALLOTS} {tally_s:.4f} s; {smi}")
+    log(f"phase 5: BFV_128_SIMD multiply_relin_rescale N=8192: "
+        f"{total_ms:.3f} ms a call; NTT launches "
+        f"{bfv_split['NTT launches']:.3f} ms "
+        f"({100 * bfv_split['NTT launches'] / total_ms:.1f}%; "
+        f"{ntt_back_ms:.3f} ms back to back on the device); digit work "
+        f"{bfv_split['digit work (CRT + rescale)']:.3f} ms "
+        f"({100 * bfv_split['digit work (CRT + rescale)'] / total_ms:.1f}%);"
+        f" the rest {rest_ms:.3f} ms ({100 * rest_ms / total_ms:.1f}%); "
+        f"within it: lift {bfv_split['lift to the auxiliary primes']:.3f} "
+        f"ms, relinearize {bfv_split['relinearize']:.3f} ms; {smi}")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        es.multiply_relin_rescale(c_a, c_b, rlks)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kern = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(k[0] for k in kern)
+    if busy:
+        # cummax runs as torch's scan-with-indices kernel
+        groups = {"NTT (K6/K7)": ("ntt_",),
+                  "cummax": ("scan_innermost_dim_with_indices",)}
+        split_us = {g: sum(k[0] for k in kern
+                           if any(m in k[2].lower() for m in ms))
+                    for g, ms in groups.items()}
+        log(f"phase 5: BFV_128_SIMD multiply_relin_rescale under the "
+            f"profiler, one call of {prof_s * 1e3:.2f} ms: device busy "
+            f"{busy / 1e3:.3f} ms, idle share "
+            f"{100 * (1 - busy / (prof_s * 1e6)):.1f}%; " + "; ".join(
+                f"{g} {us / 1e3:.3f} ms ({100 * us / busy:.1f}% of busy)"
+                for g, us in split_us.items())
+            + f"; {sum(k[1] for k in kern)} device launches; the most "
+            "time: " + "; ".join(
+                f"{key[:60]} x{cnt} {us / 1e3:.3f} ms"
+                for us, cnt, key in sorted(kern)[::-1][:6]))
+    else:
+        log("phase 5: BFV multiply device split not measured (the profiler "
+            "recorded no device events)")
+    del residues, lifted, deg2, fwd_in, inv_in
 
     # the digit kernels at the phase 2 shapes; the JSON rows at the main
     # path's shapes (K9 at its widest, B=131072; K10 at B=1, where 2480 of

@@ -6,6 +6,15 @@ reproduces, bit for bit in PyTorch:
 * its TFHE programmable bootstrap, with the blind-rotate CMux step, the
   whole ladder and the negacyclic NTTs running as hand-written CUDA kernels
   for Hopper (``csrc/cmux_step.cu``, ``ladder_*.cu``, ``ntt.cu``);
+* its engine's default ``ext_backend="auto"``, which races the int8
+  backends once per batch shape on the card (``utils/dispatch.py``);
+* its RLWE (BFV) ballot stack: parameter sets and security validation
+  (``core/params.py``, ``security.py``), the ring ``core/poly.py`` (K6-K8
+  on the card), keys, encryption with the exact t/q-rescaled multiply
+  (``core/keys.py``, ``encrypt.py``, ``bfv_mul.py``), threshold decryption
+  and proofs of correct encryption (``core/threshold.py``,
+  ``verifiable.py``), and the polynomial codec with its native LZ4
+  (``core/serializer.py``, ``native/``);
 * its ZK field and curve path: the BN254/BLS12-381 digit-plane fields
   (``zk/field.py``, ``field2.py``), G1 with the Pippenger MSM
   (``zk/curve.py``), Poseidon and the transcript (``zk/hashes.py``) and
@@ -28,6 +37,10 @@ from .core.bootstrap import (
     TfheParams, TfheEngine, LweCiphertext, GlweCiphertext, BootstrapKey,
     TFHE_BOOT_128, TFHE_BOOT_128_L2, TFHE_BOOT_128_K4, TFHE_BOOT_128_K4T,
 )
+from .core.params import ParameterSet, FHEScheme, SecurityLevel, PRESETS
+from .core.poly import PolyRing
+from .core.keys import KeyManager
+from .core.encrypt import Ciphertext, EncryptionEngine
 from .zk.field import (Field, bls12_381_fq, bls12_381_fr, bn254_fq,
                        bn254_fr)
 from .zk.field2 import Field2, bls12_381_fq2, bn254_fq2
@@ -40,6 +53,8 @@ __all__ = [
     "resolve_device", "TfheParams", "TfheEngine", "LweCiphertext",
     "GlweCiphertext", "BootstrapKey", "TFHE_BOOT_128", "TFHE_BOOT_128_L2",
     "TFHE_BOOT_128_K4", "TFHE_BOOT_128_K4T",
+    "ParameterSet", "FHEScheme", "SecurityLevel", "PRESETS", "PolyRing",
+    "KeyManager", "Ciphertext", "EncryptionEngine",
     "Field", "bn254_fq", "bn254_fr", "bls12_381_fq", "bls12_381_fr",
     "Field2", "bn254_fq2", "bls12_381_fq2", "Curve", "bn254_g1",
     "bls12_381_g1", "PoseidonHash", "Transcript", "BulletproofsGens",

@@ -1,6 +1,6 @@
 """Carry keys, ciphertexts and ZK state between the JAX package and the
-port as numpy arrays (uint32 torus values <-> int32 tensors with the same
-bits; int32 digit planes and points as they are).
+port as numpy arrays (uint32 torus values and limb planes <-> int32 tensors
+with the same bits; int32 digit planes and points as they are).
 
 The caller turns JAX arrays into numpy with ``np.asarray``; nothing here
 imports JAX.
@@ -16,7 +16,11 @@ from .device import resolve_device, tensor_to_u32, u32_to_tensor
 __all__ = ["bsk_from_numpy", "bsk_to_numpy", "lwe_from_numpy",
            "lwe_to_numpy", "digits_from_numpy", "digits_to_numpy",
            "points_from_numpy", "points_to_numpy",
-           "bulletproofs_gens_from_numpy"]
+           "bulletproofs_gens_from_numpy", "poly_from_numpy",
+           "poly_to_numpy", "secret_key_from_numpy",
+           "public_key_from_numpy", "relin_key_from_numpy",
+           "ciphertext_from_numpy", "ciphertext_to_numpy",
+           "threshold_keys_from_numpy"]
 
 
 def _i8_tensor(arr, dev):
@@ -133,3 +137,75 @@ def bulletproofs_gens_from_numpy(curve, G, H, U, g_vec, h_vec, n: int):
         H=points_from_numpy(curve, H), U=points_from_numpy(curve, U),
         g_vec=points_from_numpy(curve, g_vec),
         h_vec=points_from_numpy(curve, h_vec), n=n)
+
+
+# ---------------------------------------------------------------------------
+# RLWE (BFV) state: limb-plane polynomials, keys, ciphertexts, shares
+# ---------------------------------------------------------------------------
+
+
+def poly_from_numpy(planes, device=None) -> tuple:
+    """A JAX limb-plane polynomial, (lo, hi) uint32 arrays (..., N), -> the
+    port's (lo, hi) int32 tensors on ``device``."""
+    lo, hi = planes
+    dev = resolve_device(device)
+    return u32_to_tensor(lo, dev), u32_to_tensor(hi, dev)
+
+
+def poly_to_numpy(planes) -> tuple:
+    """Port limb planes -> (lo, hi) uint32 arrays."""
+    return tensor_to_u32(planes[0]), tensor_to_u32(planes[1])
+
+
+def secret_key_from_numpy(poly, key_id: int = 0, device=None):
+    from .core.keys import SecretKey
+    return SecretKey(poly=poly_from_numpy(poly, device), key_id=key_id)
+
+
+def public_key_from_numpy(a, b, key_id: int = 0, device=None):
+    from .core.keys import PublicKey
+    return PublicKey(a=poly_from_numpy(a, device),
+                     b=poly_from_numpy(b, device), key_id=key_id)
+
+
+def relin_key_from_numpy(a_list, b_list, decomp_base_log: int,
+                         decomp_level: int, key_id: int = 0, device=None):
+    from .core.keys import RelinKey
+    return RelinKey(a=[poly_from_numpy(x, device) for x in a_list],
+                    b=[poly_from_numpy(x, device) for x in b_list],
+                    decomp_base_log=decomp_base_log,
+                    decomp_level=decomp_level, key_id=key_id)
+
+
+def ciphertext_from_numpy(c0, c1, c2=None, noise_budget: float = 0.0,
+                          key_id: int = 0, is_ntt: bool = False,
+                          device=None):
+    """The planes of a JAX ``Ciphertext`` (c2 None for degree 1) -> the
+    port's ``Ciphertext``."""
+    from .core.encrypt import Ciphertext
+    return Ciphertext(c0=poly_from_numpy(c0, device),
+                      c1=poly_from_numpy(c1, device),
+                      c2=None if c2 is None else poly_from_numpy(c2, device),
+                      noise_budget=noise_budget, key_id=key_id,
+                      is_ntt=is_ntt)
+
+
+def ciphertext_to_numpy(ct) -> tuple:
+    """Port ``Ciphertext`` -> (c0, c1, c2) uint32 plane pairs (c2 None for
+    degree 1)."""
+    return (poly_to_numpy(ct.c0), poly_to_numpy(ct.c1),
+            None if ct.c2 is None else poly_to_numpy(ct.c2))
+
+
+def threshold_keys_from_numpy(threshold: int, total_shares: int, shares,
+                              master_poly, device=None):
+    """``shares``: (share_id, (lo, hi)) pairs of a JAX ``ThresholdKeys``;
+    ``master_poly``: its master secret's planes."""
+    from .core.keys import SecretKey
+    from .core.threshold import SecretKeyShare, ThresholdKeys
+    return ThresholdKeys(
+        threshold=threshold, total_shares=total_shares,
+        shares=[SecretKeyShare(share_id=i,
+                               share_poly=poly_from_numpy(p, device))
+                for i, p in shares],
+        master_sk=SecretKey(poly=poly_from_numpy(master_poly, device)))

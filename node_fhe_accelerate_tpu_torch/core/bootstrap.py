@@ -9,7 +9,15 @@ so keys made here are checked by decryption, not by equality.
 
 External-product backends, under the reference's names:
 
-* ``"pallas"`` (default; ``"kernel"`` is a synonym): each blind-rotate step
+* ``"auto"`` (default): on the card, when the int8 accumulation bound
+  holds, the engine races "pallas" and "mxu" (and "pallas_fused" when
+  ``NFA_ADAPTIVE_FUSED`` is set) once per batch shape through the adaptive
+  dispatcher (utils/dispatch.py) and routes ``bootstrap_with_test_poly`` to
+  the winner; a backend that raises (a kernel that fails to build or
+  launch) stops the race with its error.  "mxu" on the CPU (no race),
+  "crt" when the int8 bound fails, and "mxu" for a truncated key
+  (``bsk_drop_planes``).
+* ``"pallas"`` (``"kernel"`` is a synonym): each blind-rotate step
   is ops/cmux.py ``cmux_step``.  The reference switches to precomputed
   tiles when the key carries them; here both of its entries are the one
   kernel that reads the key row as stored, so there is one path.
@@ -33,13 +41,14 @@ For a CUDA tensor the kernel backends launch hand-written Hopper kernels
 (the CMux kernels, or the NTT kernels of ops/ntt_pallas.py for "ntt" and
 "crt", whose pointwise accumulation and CRT recombination stay plain
 PyTorch as they stay XLA in the reference); for a CPU tensor each takes its
-plain PyTorch version.  The reference's adaptive "auto" race is not ported
-yet.
+plain PyTorch version.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
@@ -186,24 +195,34 @@ class TfheEngine:
 
     _INT8 = ("pallas", "pallas_fused", "mxu_fused", "mxu")
 
-    def __init__(self, params: TfheParams, ext_backend: str = "pallas",
+    def __init__(self, params: TfheParams, ext_backend: str = "auto",
                  device=None):
         """``ext_backend``: see the module docstring.  ``device`` defaults
         to CUDA and raises without a card; pass ``device="cpu"`` for the
         plain PyTorch path."""
-        if ext_backend == "auto":
-            raise NotImplementedError(
-                "ext_backend 'auto' comes with the slice that ports "
-                "utils/dispatch.py (the adaptive race)")
+        self.device = resolve_device(device)
         if ext_backend == "kernel":
             ext_backend = "pallas"
-        if ext_backend not in self._INT8 + ("ntt", "crt"):
+        if ext_backend not in self._INT8 + ("ntt", "crt", "auto"):
             raise ValueError(f"unknown ext_backend {ext_backend!r}")
-        if params.bsk_drop_planes and ext_backend not in ("mxu",
-                                                          "mxu_fused"):
-            raise ValueError(
-                "bsk_drop_planes requires ext_backend='mxu' or "
-                f"'mxu_fused' (got {ext_backend!r})")
+        if params.bsk_drop_planes:
+            # a truncated key exists only in the int8 form: "auto" pins to
+            # "mxu" instead of racing backends that cannot represent it
+            if ext_backend == "auto":
+                ext_backend = "mxu"
+            elif ext_backend not in ("mxu", "mxu_fused"):
+                raise ValueError(
+                    "bsk_drop_planes requires ext_backend='mxu' or "
+                    f"'mxu_fused' (got {ext_backend!r})")
+        adaptive = False
+        if ext_backend == "auto":
+            i8_ok = (params.poly_degree % 128 == 0 and
+                     (params.glwe_dim + 1) * params.pbs_level *
+                     params.poly_degree *
+                     (1 << (params.pbs_base_log - 1)) * 128 < (1 << 31))
+            adaptive = i8_ok and self.device.type == "cuda"
+            ext_backend = ("pallas" if adaptive
+                           else "mxu" if i8_ok else "crt")
         if ext_backend in ("pallas", "pallas_fused", "mxu_fused") \
                 and params.poly_degree % 128:
             raise ValueError(f"ext_backend {ext_backend!r} needs "
@@ -229,9 +248,32 @@ class TfheEngine:
                 "(dual-prime) or reduce base_log")
         self.p = params
         self.backend = ext_backend
-        self.device = resolve_device(device)
         self.t = params.plaintext_modulus
         self.delta = (1 << 32) // self.t
+        self.dispatcher = None
+        if adaptive:
+            self._route_through_race()
+
+    def _route_through_race(self) -> None:
+        """Measured-once-per-batch-shape selection among the
+        interchangeable int8 backends: ``bootstrap_with_test_poly`` (and so
+        ``bootstrap``, ``programmable_bootstrap`` and the comparisons) goes
+        through the dispatcher; the sub-engines share this engine's params
+        and device and take the same BootstrapKey."""
+        from ..utils.dispatch import AdaptiveDispatcher
+        disp = AdaptiveDispatcher()
+        disp.register("pbs", "pallas", functools.partial(
+            TfheEngine.bootstrap_with_test_poly, self))
+        # pallas_fused is opt-in, as in the JAX package
+        names = ("mxu", "pallas_fused") if os.environ.get(
+            "NFA_ADAPTIVE_FUSED") else ("mxu",)
+        for name in names:
+            disp.register("pbs", name, TfheEngine(
+                self.p, ext_backend=name,
+                device=self.device).bootstrap_with_test_poly)
+        self.dispatcher = disp
+        self.bootstrap_with_test_poly = \
+            lambda lwe, bsk, tp: disp.dispatch("pbs", lwe, bsk, tp)
 
     # ------------------------------------------------------------------
     # Random draws

@@ -1,11 +1,14 @@
-"""FHE blob framing (counterpart of node_fhe_accelerate_tpu/core/serializer.py,
-``serialize_blob``/``deserialize_blob`` only).
+"""FHE blob framing and the polynomial codec (counterpart of
+node_fhe_accelerate_tpu/core/serializer.py).
 
 Header: magic, version, key type, key id, degree, modulus, data size,
 checksum type, compression, CRC32/SHA256 checksum of the stored payload --
 byte-compatible with the JAX package, so either side reads the other's
-blobs.  The port handles uncompressed and zlib payloads; LZ4 needs the JAX
-package's native codec and is refused.
+blobs.  Payloads are stored as they are, zlib-compressed, or in the LZ4
+block format of the port's native codec (``native/``) behind an 8-byte
+raw-size prefix.  ``serialize_polynomial`` bit-packs coefficients to
+ceil(log2 q) bits when a modulus is given; ``quick_verify`` checks a blob's
+header and checksum without decoding its payload.
 """
 from __future__ import annotations
 
@@ -15,9 +18,15 @@ import zlib
 from dataclasses import dataclass
 from enum import IntEnum
 
+import numpy as np
+
+from .. import native
+
 __all__ = [
     "Magic", "ChecksumType", "CompressionType", "SerializationHeader",
-    "serialize_blob", "deserialize_blob", "SerializationError",
+    "serialize_polynomial", "deserialize_polynomial",
+    "serialize_blob", "deserialize_blob", "quick_verify",
+    "SerializationError",
 ]
 
 SERIALIZATION_VERSION = 1
@@ -40,7 +49,7 @@ class ChecksumType(IntEnum):
 class CompressionType(IntEnum):
     NONE = 0
     ZLIB = 1
-    LZ4 = 2
+    LZ4 = 2  # native block-format codec (native/codec.cpp nfa_lz4_*)
 
 
 class SerializationError(ValueError):
@@ -96,12 +105,15 @@ def serialize_blob(magic: Magic, payload: bytes, *, key_id=0, key_type=0,
                    poly_degree=0, modulus=0,
                    checksum_type=ChecksumType.CRC32,
                    compression=CompressionType.NONE) -> bytes:
-    """Header + (optionally zlib-compressed) payload, checksummed."""
+    """Header + (optionally compressed) payload, checksummed."""
     if compression == CompressionType.ZLIB:
         payload = zlib.compress(payload, 6)
+    elif compression == CompressionType.LZ4:
+        # the block format has no length field: an 8-byte raw-size prefix
+        payload = struct.pack("<Q", len(payload)) + \
+            native.lz4_compress(payload)
     elif compression != CompressionType.NONE:
-        raise SerializationError(f"compression {compression} is not "
-                                 "supported by the port")
+        raise SerializationError(f"unknown compression {compression}")
     hdr = SerializationHeader(
         magic=int(magic), key_type=key_type, key_id=key_id,
         poly_degree=poly_degree, modulus=modulus, data_size=len(payload),
@@ -110,10 +122,12 @@ def serialize_blob(magic: Magic, payload: bytes, *, key_id=0, key_type=0,
     return hdr.pack() + payload
 
 
-def deserialize_blob(raw: bytes, expected_magic: Magic
+def _checked_payload(raw: bytes, expected_magic: Magic | None
                      ) -> tuple[SerializationHeader, bytes]:
+    """The header and the stored payload, after the magic, version, size
+    and checksum checks."""
     hdr = SerializationHeader.unpack(raw)
-    if hdr.magic != int(expected_magic):
+    if expected_magic is not None and hdr.magic != int(expected_magic):
         raise SerializationError(
             f"invalid magic bytes: {hdr.magic:#x} != {int(expected_magic):#x}")
     if hdr.version != SERIALIZATION_VERSION:
@@ -128,9 +142,70 @@ def deserialize_blob(raw: bytes, expected_magic: Magic
             f"unacceptable checksum type {hdr.checksum_type}")
     if _checksum(payload, hdr.checksum_type) != hdr.checksum:
         raise SerializationError("checksum mismatch")
+    return hdr, payload
+
+
+def deserialize_blob(raw: bytes, expected_magic: Magic
+                     ) -> tuple[SerializationHeader, bytes]:
+    hdr, payload = _checked_payload(raw, expected_magic)
     if hdr.compression == CompressionType.ZLIB:
         payload = zlib.decompress(payload)
+    elif hdr.compression == CompressionType.LZ4:
+        if len(payload) < 8:
+            raise SerializationError("truncated LZ4 payload")
+        (raw_size,) = struct.unpack("<Q", payload[:8])
+        if raw_size > (1 << 40):
+            raise SerializationError("implausible LZ4 raw size")
+        try:
+            payload = native.lz4_decompress(payload[8:], raw_size)
+        except ValueError as exc:
+            raise SerializationError(str(exc)) from exc
     elif hdr.compression != CompressionType.NONE:
-        raise SerializationError(f"compression {hdr.compression} is not "
-                                 "supported by the port")
+        raise SerializationError(f"unknown compression {hdr.compression}")
     return hdr, payload
+
+
+def quick_verify(raw: bytes, expected_magic: Magic | None = None
+                 ) -> SerializationHeader:
+    """Header-only integrity check: magic, version, size and the payload
+    checksum, without decompressing or decoding the payload (the checksum
+    covers the stored bytes).  Returns the parsed header; raises
+    SerializationError on any mismatch."""
+    return _checked_payload(raw, expected_magic)[0]
+
+
+def serialize_polynomial(coeffs, magic: Magic, *, key_id=0, key_type=0,
+                         modulus=0, compression=CompressionType.NONE,
+                         checksum_type=ChecksumType.CRC32) -> bytes:
+    """uint64 coefficients (..., N) as a blob.  With a modulus the
+    coefficients are bit-packed to ceil(log2 q) bits by the native codec (a
+    41-bit modulus stores 1.56x smaller than raw u64)."""
+    c = np.ascontiguousarray(np.asarray(coeffs, dtype="<u8"))
+    if modulus > 1:
+        bits = max(1, (modulus - 1).bit_length())
+        payload = native.pack_words(c.reshape(-1), bits)
+    else:
+        payload = c.tobytes()
+    return serialize_blob(magic, payload, key_id=key_id,
+                          key_type=key_type, poly_degree=c.shape[-1],
+                          modulus=modulus, compression=compression,
+                          checksum_type=checksum_type)
+
+
+def deserialize_polynomial(raw: bytes, expected_magic: Magic
+                           ) -> tuple[SerializationHeader, np.ndarray]:
+    """The header and the coefficients, (N,) or (rows, N) uint64."""
+    hdr, payload = deserialize_blob(raw, expected_magic)
+    if hdr.modulus > 1:
+        bits = max(1, (hdr.modulus - 1).bit_length())
+        n = len(payload) * 8 // bits
+        coeffs = native.unpack_words(payload, n, bits)
+    else:
+        coeffs = np.frombuffer(payload, dtype="<u8")
+    if hdr.poly_degree:
+        # drop the phantom words that the bit padding introduces
+        usable = (coeffs.size // hdr.poly_degree) * hdr.poly_degree
+        coeffs = coeffs[:usable].reshape(-1, hdr.poly_degree)
+        if coeffs.shape[0] == 1:
+            coeffs = coeffs[0]
+    return hdr, coeffs

@@ -199,9 +199,13 @@ def _shl64(a, k: int):
 
 
 def _shr64(a, k: int):
-    """a >> k for static 0 <= k < 64."""
+    """a >> k for static k >= 0: zero from k = 64 on, as the JAX package's
+    uint32 shifts give (a shift of an int64 lane by 64 or more is not
+    defined in torch)."""
     if k == 0:
         return a
+    if k >= 64:
+        return torch.zeros_like(a[0]), torch.zeros_like(a[1])
     if k >= 32:
         return a[1] >> (k - 32), torch.zeros_like(a[1])
     return ((a[0] >> k) | (a[1] << (32 - k))) & M32, a[1] >> k

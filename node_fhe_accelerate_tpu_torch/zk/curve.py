@@ -597,11 +597,11 @@ class Curve:
         device path covers n > 1024 that is not a power of two (or exceeds
         ``NFA_MSM_CHUNK``, default 16384) with descending power-of-two
         chunks; pads to a power of two (zero scalars x infinity), and below
-        256 to 256; then runs the Pippenger for n_pad >= ``min_pippenger``
-        and per-point ladders below.  (The JAX package races the two by
-        measurement for 32 <= n_pad <= 1024, through utils/dispatch.py; the
-        port has no dispatcher yet and applies the static ``min_pippenger``
-        rule there, as the JAX package does under a trace.)"""
+        256 to 256.  For 32 <= n_pad <= 1024 the Pippenger and the
+        per-point ladders race once per shape through
+        ``utils.dispatch.global_dispatcher()`` and the winner runs, as in
+        the JAX package; outside that band the Pippenger runs for n_pad >=
+        ``min_pippenger`` and the ladders below."""
         if backend is None:
             backend = self._default_backend()
         if backend == "host":
@@ -640,9 +640,24 @@ class Curve:
             scalar_limbs = torch.cat([scalar_limbs, scalar_limbs.new_zeros(
                 (pad,) + tuple(scalar_limbs.shape[1:]))])
             points = _cat_points(points, self.infinity((pad,)))
+        if 32 <= n_pad <= 1024:
+            disp, op = self.msm_race()
+            return disp.dispatch(op, scalar_limbs, points)
         if n_pad >= min_pippenger:
             return self._msm_pippenger_impl(scalar_limbs, points)
         return self._msm_ladder(scalar_limbs, points)
+
+    def msm_race(self):
+        """(dispatcher, op) of this curve's Pippenger-vs-ladder race, its
+        two candidates registered at first use; the op is keyed by the
+        field and the curve object, as in the JAX package."""
+        from ..utils.dispatch import global_dispatcher
+        disp = global_dispatcher()
+        op = f"msm_{self.fq.q % 100003}_{id(self)}"
+        if not disp.has(op):
+            disp.register(op, "pippenger", self._msm_pippenger_impl)
+            disp.register(op, "ladder", self._msm_ladder)
+        return disp, op
 
     def _msm_ladder(self, scalar_limbs, points):
         """Small-batch MSM: per-point windowed ladders + tree reduction."""

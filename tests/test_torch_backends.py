@@ -154,8 +154,10 @@ def test_prepared_jax_key_converts_field_by_field(setup, form):
 
 
 def test_unported_backends_say_which_slice_brings_them(setup):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TfheEngine(setup["p"], ext_backend="auto", device="cpu")
+    # every backend is ported: "auto" came with the dispatcher and, on the
+    # CPU, resolves to "mxu" without a race, as in the JAX package
+    assert TfheEngine(setup["p"], ext_backend="auto",
+                      device="cpu").backend == "mxu"
     for backend in ("ntt", "crt"):              # ported with the NTT core
         assert TfheEngine(setup["p"], ext_backend=backend,
                           device="cpu").backend == backend
@@ -165,8 +167,8 @@ def test_unported_backends_say_which_slice_brings_them(setup):
         TfheEngine(params_256(poly_degree=64), ext_backend="mxu_fused",
                    device="cpu")
     with pytest.raises(ValueError):
-        TfheEngine(setup["p"], device="cpu").prepare_bsk(setup["bsk"],
-                                                         form="rows")
+        TfheEngine(setup["p"], ext_backend="pallas",
+                   device="cpu").prepare_bsk(setup["bsk"], form="rows")
 
 
 COMPARISONS = {

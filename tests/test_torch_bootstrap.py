@@ -48,7 +48,7 @@ def jax_key(bsk, p):
 
 
 def make_setup(p, seed):
-    eng = TfheEngine(p, device="cpu")
+    eng = TfheEngine(p, ext_backend="pallas", device="cpu")
     gen = torch.Generator().manual_seed(seed)
     lwe_sk = eng.lwe_keygen(gen)
     glwe_sk = eng.glwe_keygen(gen)
@@ -210,13 +210,14 @@ def test_engine_device_and_backend_rules():
                           ("mxu_fused", "mxu_fused"), ("mxu", "mxu")):
         assert TfheEngine(p, ext_backend=name,
                           device="cpu").backend == backend
-    for name in (None, "pallas", "pallas_fused"):
+    for name in ("pallas", "pallas_fused"):
         with pytest.raises(ValueError):
-            kw = {} if name is None else {"ext_backend": name}
-            TfheEngine(TFHE_BOOT_128_K4T(), device="cpu", **kw)
-    for name in ("mxu", "mxu_fused"):
-        assert TfheEngine(TFHE_BOOT_128_K4T(), ext_backend=name,
-                          device="cpu").backend == name
+            TfheEngine(TFHE_BOOT_128_K4T(), ext_backend=name, device="cpu")
+    # the default, "auto", pins a truncated key to "mxu"
+    for name in (None, "mxu", "mxu_fused"):
+        kw = {} if name is None else {"ext_backend": name}
+        assert TfheEngine(TFHE_BOOT_128_K4T(), device="cpu",
+                          **kw).backend == (name or "mxu")
 
 
 @pytest.mark.slow
@@ -239,7 +240,7 @@ def test_k4_committed_blob_matches_jax():
     msgs = jnp.arange(4, dtype=jnp.uint32) % 2
     jct = jeng.lwe_encrypt(jax.random.PRNGKey(100), msgs, jsk)
     want = jeng.bootstrap_jit(jct, jbsk, jeng.default_test_poly())
-    eng = TfheEngine(p, device="cpu")
+    eng = TfheEngine(p, ext_backend="pallas", device="cpu")
     got = eng.bootstrap(lwe_from_numpy(np.asarray(jct.a), np.asarray(jct.b),
                                        "cpu"), bsk)
     assert_same(got, want)

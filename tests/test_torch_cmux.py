@@ -41,7 +41,7 @@ def jax_params(p):
 
 
 def port_key(p, seed):
-    eng = TfheEngine(p, device="cpu")
+    eng = TfheEngine(p, ext_backend="pallas", device="cpu")
     gen = torch.Generator().manual_seed(seed)
     lwe_sk = eng.lwe_keygen(gen)
     glwe_sk = eng.glwe_keygen(gen)

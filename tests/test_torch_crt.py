@@ -260,7 +260,7 @@ def tfhe256_gadget(**kw):
 
 def test_backend_bounds_follow_jax():
     """"ntt" rejects the TFHE_256 gadget and names "crt", which takes it;
-    "auto" waits for its slice."""
+    "auto" resolves on the CPU as the JAX package's does."""
     p = tfhe256_gadget()
     with pytest.raises(ValueError, match="crt"):
         TfheEngine(p, ext_backend="ntt", device="cpu")
@@ -268,8 +268,11 @@ def test_backend_bounds_follow_jax():
     # N % 128 binds only the int8 kernel backends
     assert TfheEngine(tiny_params(), ext_backend="ntt",
                       device="cpu").backend == "ntt"
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        TfheEngine(p, ext_backend="auto", device="cpu")
+    for q in (p, tiny_params()):
+        want = JaxEngine(JaxParams(**dataclasses.asdict(q)),
+                         ext_backend="auto").backend
+        assert TfheEngine(q, ext_backend="auto", device="cpu").backend == \
+            want
 
 
 def test_key_form_must_match_the_backend():

@@ -96,7 +96,7 @@ def test_kernel_matches_plain(cuda_device, p, batch):
 def test_kernel_bootstrap_matches_mxu(cuda_device):
     p = dataclasses.replace(SMALL, lwe_noise_std=0.0, glwe_noise_std=0.0)
     gen = torch.Generator(device=cuda_device).manual_seed(6)
-    eng = TfheEngine(p, device=cuda_device)
+    eng = TfheEngine(p, ext_backend="pallas", device=cuda_device)
     sk = eng.lwe_keygen(gen)
     bsk = eng.generate_bootstrap_key(gen, sk, eng.glwe_keygen(gen))
     msgs = torch.arange(64, device=cuda_device) % 2
@@ -510,25 +510,38 @@ def test_digit_kernels_match_plain(cuda_device, name, batch):
 
 @pytest.mark.cuda
 def test_device_msm_matches_host(cuda_device):
-    """A device MSM at n=256 (the Pippenger: K9 wide adds, the point kernel
-    for the narrow ops) == the host backend on the same inputs."""
+    """A device MSM at n=256, inside the band where the Pippenger (K9 wide
+    adds, the point kernel for the narrow ops) and the per-point ladders
+    (the point kernel) race once: the race's winner, and each candidate,
+    == the host backend on the same inputs."""
     c = zk_curve.bn254_g1(device=cuda_device)
     rng = np.random.default_rng(16)
     pts = c.fixed_base_mul([int(v) for v in rng.integers(1, 2 ** 30, 256)])
     sc = limbs.limbs_from_ints([int(v) for v in
                                 rng.integers(0, 2 ** 62, 256)], 8,
                                cuda_device)
+    disp, op = c.msm_race()
+    winner = disp.selection_for(op, sc, pts)
+    want = c.msm(sc, pts, backend="host")
+    for name in ("pippenger", "ladder"):
+        fn = {"pippenger": c._msm_pippenger_impl,
+              "ladder": c._msm_ladder}[name]
+        assert [int(v) for v in c.to_affine_ints(fn(sc, pts))[:2]] == \
+            [int(v) for v in c.to_affine_ints(want)[:2]], name
     before = (_mul_t_raw.launches, pallas_field_mul.launches,
               pallas_jadd.launches, pallas_jdbl.launches)
     got = c.msm(sc, pts)
-    assert _mul_t_raw.launches > before[0]
     # the narrow point ops are one point-kernel launch each, no single
-    # products: the Horner tail's 256 doubles and 33 adds, and the 5 adds
-    # of the scan over the 32 group totals (1024 points, below K9's 2048)
+    # products.  The Pippenger: K9, the Horner tail's 256 doubles and 33
+    # adds, and the 5 adds of the scan over the 32 group totals (1024
+    # points, below K9's 2048); the ladders: a scalar_mul at width 256
+    # (14 table adds, 64 rounds of 4 doubles and an add), 8 tree adds
     assert pallas_field_mul.launches == before[1]
+    adds, k9 = (33 + 5, True) if winner == "pippenger" \
+        else (14 + 64 + 8, False)
+    assert (_mul_t_raw.launches > before[0]) == k9
     assert (pallas_jadd.launches - before[2],
-            pallas_jdbl.launches - before[3]) == (33 + 5, 256)
-    want = c.msm(sc, pts, backend="host")
+            pallas_jdbl.launches - before[3]) == (adds, 256)
     assert [int(v) for v in c.to_affine_ints(got)[:2]] == \
         [int(v) for v in c.to_affine_ints(want)[:2]]
 
@@ -605,3 +618,91 @@ def test_point_kernel_broadcasts_and_refuses(cuda_device):
     assert same_planes(got, want)
     with pytest.raises(ValueError, match="digits"):
         pallas_jdbl(zk_curve.bls12_381_g1(device=cuda_device).fq, P)
+
+
+# ---------------------------------------------------------------------------
+# The BFV stack's ring on the card (core/poly.py PolyRing): K6/K7 over the
+# auxiliary primes of RescaleMultiplier, K8 in its narrow (Q_40_1, N=1024)
+# and wide (Q_60_1, N=8192) forms, each against the ring on the CPU
+# ---------------------------------------------------------------------------
+
+BFV_RINGS = [(1024, 1095216660481, 64), (8192, 1152921504606584833, 65537)]
+
+
+def _bfv_aux_primes():
+    from node_fhe_accelerate_tpu_torch.core.bfv_mul import aux_prime_chain
+    return [(n, p) for n, q, _ in BFV_RINGS
+            for p in aux_prime_chain(n, n.bit_length() + 2 * q.bit_length()
+                                     + 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(n, q) for n, q, _ in BFV_RINGS],
+                         ids=["ballot_q40_n1024", "simd_q60_n8192"])
+def test_polyring_on_card_matches_cpu(cuda_device, n, q):
+    from node_fhe_accelerate_tpu_torch.core.poly import PolyRing
+    gpu, cpu = PolyRing(n, q, device=cuda_device), PolyRing(n, q,
+                                                            device="cpu")
+    a = random_planes(n, 2, q, cuda_device, 21)
+    b = random_planes(n, 2, q, cuda_device, 22)
+    ac, bc = tuple(x.cpu() for x in a), tuple(x.cpu() for x in b)
+    before = dict(PallasNTT.launches)
+    got = (gpu.multiply(a, b), gpu.to_ntt(a), gpu.from_ntt(a))
+    torch.cuda.synchronize()
+    assert {k: PallasNTT.launches[k] - before[k] for k in before} == \
+        dict(forward=1, inverse=1, negacyclic_mul=1)
+    want = (cpu.multiply(ac, bc), cpu.to_ntt(ac), cpu.from_ntt(ac))
+    for g, w in zip(got, want):
+        assert same_planes(tuple(x.cpu() for x in g), w)
+    for op in ("add", "sub", "pointwise"):
+        assert same_planes(tuple(x.cpu() for x in getattr(gpu, op)(a, b)),
+                           getattr(cpu, op)(ac, bc))
+    np.testing.assert_array_equal(
+        u64_to_np(got[0])[0], negacyclic_mul_np(u64_to_np(a)[0],
+                                                u64_to_np(b)[0], q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", _bfv_aux_primes())
+def test_bfv_aux_prime_transforms_match_plain(cuda_device, n, p):
+    """K6 on four rows and K7 on three, as RescaleMultiplier launches them
+    per auxiliary prime (the wide, Shoup form: ~59-bit primes)."""
+    pk = PallasNTT(NTTContext(n, p))
+    a = random_planes(n, 4, p, cuda_device, 23)
+    fa = pk.forward(a)
+    assert same_planes(fa, pk.ntt.forward(a))
+    back = pk.inverse(tuple(x[:3] for x in fa))
+    assert same_planes(back, tuple(x[:3] for x in a))
+
+
+@pytest.mark.cuda
+def test_bfv_multiply_on_card_matches_cpu(cuda_device):
+    """Keys, an encryption and multiply_relin_rescale at the ballot ring
+    from one generator state on the card and on the CPU: equal ciphertexts,
+    and the product decrypts to the negacyclic product mod t."""
+    from node_fhe_accelerate_tpu_torch.core.encrypt import EncryptionEngine
+    from node_fhe_accelerate_tpu_torch.core.keys import KeyManager
+    from node_fhe_accelerate_tpu_torch.core.params import (FHEScheme,
+                                                           ParameterSet)
+    n, q, t = BFV_RINGS[0]
+    p = ParameterSet(scheme=FHEScheme.BFV, poly_degree=n, moduli=[q],
+                     lwe_dimension=0, lwe_noise_std=3.2, decomp_base_log=20,
+                     decomp_level=3, plaintext_modulus=t)
+    state = torch.Generator(device=cuda_device).manual_seed(3).get_state()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        g = torch.Generator(device=cuda_device)
+        g.set_state(state)
+        eng = EncryptionEngine(p, device=dev)
+        km = KeyManager(p, eng.ring)
+        sk = km.generate_secret_key(g)
+        pk = km.generate_public_key(g, sk)
+        rlk = km.generate_relin_key(g, sk)
+        c1 = eng.encrypt(g, [3, 1], pk)
+        c2 = eng.encrypt(g, [5, 2], pk)
+        prod = eng.multiply_relin_rescale(c1, c2, rlk)
+        out[dev.type] = (u64_to_np(prod.c0), u64_to_np(prod.c1),
+                         eng.decrypt(prod, sk, 3)[0].tolist())
+    for g, w in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(g, w)
+    assert out["cuda"][2] == [15, 11, 2]
