@@ -15,6 +15,14 @@ reproduces, bit for bit in PyTorch:
   and proofs of correct encryption (``core/threshold.py``,
   ``verifiable.py``), and the polynomial codec with its native LZ4
   (``core/serializer.py``, ``native/``);
+* the same stack over a whole RNS moduli chain (``core/rns.py``) and
+  leveled CKKS (``core/ckks.py``), with the public entry of the JAX package:
+  ``api/engine.py`` ``FHEEngine``, ``api/context.py`` ``FHEContext``,
+  ``api/ckks_context.py`` ``CkksContext``, the tally stream, audit trail
+  and fraud detection (``api/tally.py``, ``audit.py``, ``fraud.py``),
+  chunked and streamed ciphertext processing (``core/streaming.py``,
+  ``streams.py``) and speculative multi-LUT bootstrapping
+  (``core/speculative.py``);
 * its ZK field and curve path: the BN254/BLS12-381 digit-plane fields
   (``zk/field.py``, ``field2.py``), G1 with the Pippenger MSM
   (``zk/curve.py``), Poseidon and the transcript (``zk/hashes.py``) and

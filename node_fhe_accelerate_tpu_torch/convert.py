@@ -20,7 +20,10 @@ __all__ = ["bsk_from_numpy", "bsk_to_numpy", "lwe_from_numpy",
            "poly_to_numpy", "secret_key_from_numpy",
            "public_key_from_numpy", "relin_key_from_numpy",
            "ciphertext_from_numpy", "ciphertext_to_numpy",
-           "threshold_keys_from_numpy"]
+           "threshold_keys_from_numpy", "rns_poly_from_numpy",
+           "rns_poly_to_numpy", "rns_relin_key_from_numpy",
+           "rns_relin_key_to_numpy", "ckks_ciphertext_from_numpy",
+           "ckks_ciphertext_to_numpy"]
 
 
 def _i8_tensor(arr, dev):
@@ -209,3 +212,59 @@ def threshold_keys_from_numpy(threshold: int, total_shares: int, shares,
                                share_poly=poly_from_numpy(p, device))
                 for i, p in shares],
         master_sk=SecretKey(poly=poly_from_numpy(master_poly, device)))
+
+
+# ---------------------------------------------------------------------------
+# RNS and CKKS state: residue tuples, the RNS relin key, CKKS ciphertexts
+# ---------------------------------------------------------------------------
+
+
+def rns_poly_from_numpy(residues, device=None) -> tuple:
+    """A JAX residue tuple, one (lo, hi) uint32 pair per prime, -> the
+    port's residue tuple on ``device``."""
+    return tuple(poly_from_numpy(r, device) for r in residues)
+
+
+def rns_poly_to_numpy(poly) -> tuple:
+    """Port residue tuple -> one (lo, hi) uint32 pair per prime."""
+    return tuple(poly_to_numpy(r) for r in poly)
+
+
+def rns_relin_key_from_numpy(a, b, key_id: str = "rns-relin",
+                             device=None):
+    """The residue tuples of a JAX ``RnsRelinKey`` (a[j], b[j] per gadget
+    component) -> the port's ``RnsRelinKey``."""
+    from .core.rns import RnsRelinKey
+    return RnsRelinKey(a=[rns_poly_from_numpy(x, device) for x in a],
+                       b=[rns_poly_from_numpy(x, device) for x in b],
+                       key_id=key_id)
+
+
+def rns_relin_key_to_numpy(rlk) -> tuple:
+    """Port ``RnsRelinKey`` -> (a, b) lists of residue tuples of uint32
+    pairs."""
+    return ([rns_poly_to_numpy(x) for x in rlk.a],
+            [rns_poly_to_numpy(x) for x in rlk.b])
+
+
+def ckks_ciphertext_from_numpy(c0, c1, c2=None, level: int = 0,
+                               scale=1, key_id: str = "ckks", device=None):
+    """The residue tuples of a JAX ``CkksCiphertext`` (c2 None for degree
+    1), its level and its scale (a ``Fraction``, kept exact) -> the port's
+    ``CkksCiphertext``."""
+    from fractions import Fraction
+
+    from .core.ckks import CkksCiphertext
+    return CkksCiphertext(
+        c0=rns_poly_from_numpy(c0, device), c1=rns_poly_from_numpy(c1, device),
+        c2=None if c2 is None else rns_poly_from_numpy(c2, device),
+        level=level, scale=Fraction(scale), key_id=key_id)
+
+
+def ckks_ciphertext_to_numpy(ct) -> tuple:
+    """Port ``CkksCiphertext`` -> (c0, c1, c2, level, scale): residue tuples
+    of uint32 pairs (c2 None for degree 1), the level and the exact
+    scale."""
+    return (rns_poly_to_numpy(ct.c0), rns_poly_to_numpy(ct.c1),
+            None if ct.c2 is None else rns_poly_to_numpy(ct.c2), ct.level,
+            ct.scale)

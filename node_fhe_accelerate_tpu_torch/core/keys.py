@@ -4,7 +4,9 @@ node_fhe_accelerate_tpu/core/keys.py).
 * secret key: a ternary polynomial (gaussian, binary and uniform also
   offered);
 * public key: RLWE(0) = (a, b = a*s + e);
-* relinearization key: per level an encryption of s^2 * base^i.
+* relinearization key: per level an encryption of s^2 * base^i; on an
+  RNS ring (core/rns.py) the RNS gadget's key, one encryption of
+  (Q/q_j) s^2 per prime.
 
 Each generator splits into its draws (``torch.Generator``, on the
 generator's device) and an arithmetic half that takes the draws as limb
@@ -87,7 +89,8 @@ class KeyManager:
         elif distribution == SecretKeyDistribution.GAUSSIAN:
             p = ring.sample_gaussian(gen, self._noise_std())
         elif distribution == SecretKeyDistribution.BINARY:
-            p = binary_planes(gen, (ring.n,), ring.device)
+            p = (ring.sample_binary(gen) if hasattr(ring, "sample_binary")
+                 else binary_planes(gen, (ring.n,), ring.device))
         else:
             p = ring.sample_uniform(gen)
         return SecretKey(poly=p, key_id=key_id)
@@ -121,7 +124,13 @@ class KeyManager:
                            decomp_base_log: int = 0,
                            decomp_level: int = 0) -> RelinKey:
         """Encrypt s^2 * base^i per level: draws (a_i, e_i) level by
-        level."""
+        level.  On an RNS ring, the RNS gadget's key
+        (``RnsKeySet.generate_relin_key``; the digit arguments are
+        ignored)."""
+        if getattr(self.ring, "rings", None) is not None:
+            from .rns import RnsKeySet
+            return RnsKeySet(self.ring, self._noise_std()).generate_relin_key(
+                gen, sk)
         base_log, levels = self.relin_levels(decomp_base_log, decomp_level)
         a_list, e_list = [], []
         for _ in range(levels):

@@ -189,9 +189,13 @@ def _mul_wide(a, b):
 
 
 def _shl64(a, k: int):
-    """(a << k) mod 2^64 for static 0 <= k < 64."""
+    """(a << k) mod 2^64 for static k >= 0: zero from k = 64 on, as the
+    JAX package's uint32 shifts give (a shift of an int64 lane by 64 or
+    more is not defined in torch)."""
     if k == 0:
         return a
+    if k >= 64:
+        return torch.zeros_like(a[0]), torch.zeros_like(a[1])
     if k >= 32:
         return torch.zeros_like(a[0]), (a[0] << (k - 32)) & M32
     return ((a[0] << k) & M32,

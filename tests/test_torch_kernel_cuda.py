@@ -706,3 +706,155 @@ def test_bfv_multiply_on_card_matches_cpu(cuda_device):
     for g, w in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(g, w)
     assert out["cuda"][2] == [15, 11, 2]
+
+
+# ---------------------------------------------------------------------------
+# The RNS chains of the public API on the card: K6/K7/K8 at the primes and
+# degrees of BFV_128_SIMD (Q_60_1..3 and the seven ~59-bit auxiliary primes
+# of its RnsRescaleMultiplier, N=8192) and of CKKS_128_ML (N=16384: K6/K7 over
+# Q_60_1, Q_50_3, Q_50_2 in the wide form and Q_40_1, Q_40_2 in the narrow
+# one); then the RNS engine, CKKS and u64_shl on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _simd_primes():
+    from node_fhe_accelerate_tpu_torch.core.bfv_mul import aux_prime_chain
+    from node_fhe_accelerate_tpu_torch.core.params import BFV_128_SIMD
+    p = BFV_128_SIMD()
+    Q = int(np.prod([int(q) for q in p.moduli], dtype=object))
+    bound = p.poly_degree.bit_length() + 2 * Q.bit_length() + 2
+    return list(p.moduli) + aux_prime_chain(p.poly_degree, bound,
+                                            exclude=tuple(p.moduli))
+
+
+def _ckks_primes():
+    from node_fhe_accelerate_tpu_torch.core.params import CKKS_128_ML
+    return list(CKKS_128_ML().moduli)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", _simd_primes())
+def test_simd_chain_kernels_match_plain(cuda_device, q):
+    """K6 on six rows and K7 on three (the forward of relinearize's stacked
+    gadget products, the inverse of a tensor product), and K8 on six rows
+    (relinearize's 2K products of one prime), at N=8192."""
+    pk = PallasNTT(NTTContext(8192, q))
+    a = random_planes(8192, 6, q, cuda_device, 31)
+    b = random_planes(8192, 6, q, cuda_device, 32)
+    fa = pk.forward(a)
+    assert same_planes(fa, pk.ntt.forward(a))
+    back = pk.inverse(tuple(x[:3] for x in fa))
+    assert same_planes(back, tuple(x[:3] for x in a))
+    assert same_planes(pk.negacyclic_mul(a, b), pk.ntt.negacyclic_mul(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", _ckks_primes())
+def test_ckks_chain_transforms_match_plain(cuda_device, q):
+    """K6 on four rows (a product's four operands) and K7 on three at
+    N=16384, where the ring product is K6, the pointwise product and K7."""
+    from node_fhe_accelerate_tpu_torch.core.poly import PolyRing
+    pk = PallasNTT(NTTContext(16384, q))
+    a = random_planes(16384, 4, q, cuda_device, 33)
+    fa = pk.forward(a)
+    assert same_planes(fa, pk.ntt.forward(a))
+    assert same_planes(pk.inverse(tuple(x[:3] for x in fa)),
+                       tuple(x[:3] for x in a))
+    gpu, cpu = PolyRing(16384, q, cuda_device), PolyRing(16384, q, "cpu")
+    x, y = tuple(v[:1] for v in a), tuple(v[1:2] for v in a)
+    assert same_planes(tuple(v.cpu() for v in gpu.multiply(x, y)),
+                       cpu.multiply(tuple(v.cpu() for v in x),
+                                    tuple(v.cpu() for v in y)))
+
+
+def _small_chain(bits=(30, 30, 29)):
+    """NTT primes of the given sizes at N=1024, distinct."""
+    from node_fhe_accelerate_tpu_torch.ops.primes import find_ntt_prime
+    out = []
+    for b in bits:
+        below = min([q for q in out if q.bit_length() == b], default=None)
+        out.append(find_ntt_prime(b, 1024, below=below))
+    return out
+
+
+@pytest.mark.cuda
+def test_rns_engine_on_card_matches_cpu(cuda_device):
+    """Keys, encryptions, multiply_relin and a 2-of-3 threshold decryption
+    over a three-prime chain at N=1024 from one generator state on the card
+    and on the CPU: equal residues, the product decrypts."""
+    from node_fhe_accelerate_tpu_torch.api.engine import FHEEngine
+    from node_fhe_accelerate_tpu_torch.core.params import (FHEScheme,
+                                                           ParameterSet)
+    p = ParameterSet(scheme=FHEScheme.BFV, poly_degree=1024,
+                     moduli=_small_chain(), lwe_dimension=0,
+                     lwe_noise_std=3.2, plaintext_modulus=257)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        fhe = FHEEngine(p, rng_seed=5, device=dev)
+        fhe.gen = torch.Generator(device=cuda_device).manual_seed(5)
+        sk = fhe.generate_secret_key()
+        ek = fhe.generate_eval_key(sk)
+        pk = fhe.generate_public_key(sk)
+        a, b = fhe.encrypt_packed([3, 1], pk), fhe.encrypt_packed([5, 2], pk)
+        before = dict(PallasNTT.launches)
+        prod = fhe.multiply_relin(a, b, ek)
+        launched = {k: PallasNTT.launches[k] - before[k] for k in before}
+        tk = fhe.generate_threshold_keys(2, 3)
+        ct = fhe.encrypt_value(200, fhe.generate_public_key(tk.master_sk))
+        parts = [fhe.partial_decrypt(ct, s) for s in tk.shares[1:]]
+        out[dev.type] = ([np.stack([u64_to_np(r) for r in poly])
+                          for poly in (prod.c0, prod.c1)],
+                         fhe.decrypt_packed(prod, sk, 3).tolist(),
+                         int(fhe.combine_partial_decryptions(
+                             ct, parts, 2).values[0]), launched)
+    for g, w in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_array_equal(g, w)
+    assert out["cuda"][1:3] == out["cpu"][1:3] == ([15, 11, 2], 200)
+    assert out["cuda"][3]["negacyclic_mul"] == 3     # relinearize, a prime
+    assert out["cuda"][3]["forward"] > 0 and out["cuda"][3]["inverse"] > 0
+
+
+@pytest.mark.cuda
+def test_ckks_fused_on_card_matches_eager_and_cpu(cuda_device):
+    """Keys, encryptions and the fused multiply_relin_rescale over a
+    50/50/40-bit chain at N=1024, scale 2^40, from one generator state on the card and
+    on the CPU: fused == eager on each, the card == the CPU, and the
+    product decodes."""
+    from node_fhe_accelerate_tpu_torch.core.ckks import CkksEngine
+    from node_fhe_accelerate_tpu_torch.core.params import (FHEScheme,
+                                                           ParameterSet)
+    p = ParameterSet(scheme=FHEScheme.CKKS, poly_degree=1024,
+                     moduli=_small_chain((50, 50, 40)), lwe_dimension=0,
+                     lwe_noise_std=3.2, plaintext_modulus=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = CkksEngine(p, scale=1 << 40, device=dev)
+        g = torch.Generator(device=cuda_device).manual_seed(9)
+        sk = eng.generate_secret_key(g)
+        pk = eng.generate_public_key(g, sk)
+        rlks = eng.generate_relin_keys(g, sk)
+        x, y = eng.encrypt(g, [1.5, -2.0], pk), eng.encrypt(g, [2.0, 0.5], pk)
+        fused = eng.multiply_relin_rescale(x, y, rlks, fused=True)
+        eager = eng.multiply_relin_rescale(x, y, rlks, fused=False)
+        for f, e in zip(fused.c0 + fused.c1, eager.c0 + eager.c1):
+            assert same_planes(f, e)
+        out[dev.type] = (fused, eng.decrypt(fused, sk, 2))
+    for f, e in zip(out["cuda"][0].c0 + out["cuda"][0].c1,
+                    out["cpu"][0].c0 + out["cpu"][0].c1):
+        assert same_planes(tuple(v.cpu() for v in f), e)
+    np.testing.assert_allclose(out["cuda"][1], [3.0, -1.0], atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 33, 63, 64, 70, 96, 100, 120])
+def test_u64_shl_on_card_matches_cpu(cuda_device, k):
+    """u64_shl on the card, shifts of 64 and more included (zero), equal
+    to the CPU and to Python's (x << k) mod 2^64."""
+    from node_fhe_accelerate_tpu_torch.ops.u64 import u64_from_np, u64_shl
+    x = np.random.default_rng(k).integers(0, 1 << 63, 256,
+                                          dtype=np.uint64) * 2 + 1
+    got = u64_to_np(u64_shl(u64_from_np(x, cuda_device), k))
+    np.testing.assert_array_equal(got, u64_to_np(u64_shl(u64_from_np(x),
+                                                         k)))
+    want = np.array([(int(v) << k) % (1 << 64) for v in x], dtype=np.uint64)
+    np.testing.assert_array_equal(got, want)
