@@ -19,7 +19,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    add or double in one launch) on BN254 and BLS12-381 G1 points with the
    edge rows (p or q at infinity, p = q, p = -q) and on random elements at
    B = 1, 32 and 1000, against its plain version and against the formulas
-   over the field on the CPU; the NTT
+   over the field on the CPU; K9 over Fq2 (``_TField2``: the digit-major
+   G2 add and double the G2 MSM's 2048-point chunks take) at 2048 points
+   and at a ragged 1000, against its plain version and the host G2 on the
+   edge rows; the Fr NTT (one launch of K10's product a stage) forward
+   and inverse at d = 4096 and 16384 against the port on the CPU; the NTT
    kernels (ntt.cu: forward, inverse, negacyclic product) at the JAX
    package's bench shapes (N=1024/B=8192, 4096/2048, 16384/512 with
    Q_40_1, 16384/512 with Q_60_1; the product at N=1024/B=2048, in both of
@@ -77,9 +81,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    single product, equal to the host Pippenger; the same at BLS12-381 G1
    with n=1024 (456 K9); and a 64-bit Bulletproofs range proof on the card
    (``BulletproofsGens.generate(curve, 64)``, a seeded prover, the value
-   drawn as the JAX suite draws it) equal field for field to the proof the
-   port makes on the CPU from the same seed, verifying, and refused once
-   t_hat is tampered; each MSM is also held equal to the host's result by
+   drawn as the JAX suite draws it), verifying, and refused once t_hat is
+   tampered, and an 8-bit proof from the same seed on the card equal field
+   for field to the proof the port makes on the CPU; each MSM is also held equal to the host's result by
    projective equality on the card (``Curve.eq``: 8 launches of K10's
    single product, which no MSM or proof launches any more); the MSMs
    inside the band 32 <= n_pad <= 1024 (BLS12-381 at n=1024, the proof's
@@ -126,6 +130,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase-4 K4 key through the default engine, 4 LUTs x 1024 rows bit-equal
    to four ``bootstrap_with_test_poly`` and ``run_all_funcs`` bit-equal to
    ``bootstrap_many_lut``;
+   then the SNARK slice through the voting API, counts likewise:
+   ``VotingSystem`` (4 candidates, TFHE_128_VOTING, 3-of-5,
+   ``eligibility_snark=True``) with 256 registered voters (a Poseidon
+   Merkle tree of depth 8; EligibilityCircuit(8), d = 4096), the Groth16
+   setup on the card, the MSM band races of the path's curve objects
+   once, 2 ballots (each a Groth16 eligibility proof: G1 MSMs, the G2 MSM
+   whose 2048-point chunk runs K9 over Fq2, the h-pipeline on the Fr NTT;
+   an 8-bit range proof; one K8 ``encrypt_packed``), each verifying, a
+   second ballot of one voter refused (nullifier), swapped publics and a
+   swapped proof refused, the tally decrypted 3-of-5 to the votes mod t;
+   the exported package through ``PublicVerifier`` and through ``python
+   -m node_fhe_accelerate_tpu_torch.cli verify`` (exit 0), one flipped
+   proof digit failing it; ``ZKProofManager.init_tally(1024)`` and one
+   PLONK tally proof (n = 2048, the quotient on 16,384 points) verifying,
+   a wrong total refused; and seeded Groth16 (EligibilityCircuit(2)) and
+   PLONK (x*y = z) proofs on the card equal to the port's on the CPU;
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
    the NTT kernels as device time of back-to-back launches, a spin kernel
@@ -148,7 +168,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    within one call under torch.profiler, the device time and launches of
    K9, K10's single product and point kernel and the other kernels and the
    device's idle share, and the seconds of one 64-bit prove_range and
-   verify_range.
+   verify_range; the seconds of the Groth16 setup, one eligibility proof
+   and one verify, the PLONK tally's setup, prove and verify, one FrNtt
+   forward at d = 4096 and 16384 (CUDA events), ballots with proofs per
+   second, and one Groth16 proof under torch.profiler (launches and
+   device time by kernel, the device's idle share).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -215,6 +239,7 @@ MANY_LUT_MIN_OK = 4094   # of run_all_funcs's 4 x 1,024 values at K4, seed 0
 MSM_N = 4096             # the JAX suite's msm_bn254_4096 row
 MSM_BLS_N = 1024
 BP_BITS = 64             # the JAX suite's bp_range_prove_64 row
+BP_CMP_BITS = 8          # the range proof held card == CPU
 # launches of one Pippenger (c = 8, W = 32 windows of 8-limb scalars): the
 # wide adds of the group scans (log2 8 + ceil(log2(n/8)) + 1 bucket gather +
 # 8 bucket scans, at least 2048 points each) take K9, 24 products an add;
@@ -244,8 +269,12 @@ def variant(name: str) -> str:
     return "H100 SXM"
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, prefixed with the seconds since the run began."""
+    print(f"[{time.perf_counter() - _START:7.1f} s] {msg}", flush=True)
 
 
 def bound(macs, nbytes, peak_ops, peak_bytes):
@@ -468,6 +497,477 @@ def profile_line(label, fn, plain_ms):
                                  for us, cnt, key in kern[:5]))
 
 
+ELECTION_VOTERS = 256      # tree depth 8, ZKProofManager's default
+ELECTION_VOTES = [3, 1]    # ~33 s a ballot on the card: G2 is host-bound
+TALLY_BALLOTS = 1024       # n = 2048, the quotient on 16,384 points
+FR_NTT_SIZES = (4096, 16384)
+PROFILE_BEFORE_S = 950     # the proof under the profiler takes ~1-2 min
+
+
+def snark_counts():
+    """The launch counts of the kernels the SNARK slice runs."""
+    from node_fhe_accelerate_tpu_torch.ops import digits_pallas as dp
+    from node_fhe_accelerate_tpu_torch.ops.ntt_pallas import PallasNTT
+    return {"ntt_negacyclic_mul": PallasNTT.launches["negacyclic_mul"],
+            "digits_mul_t": dp._mul_t_raw.launches,
+            "digits_mul": dp.pallas_field_mul.launches,
+            "digits_jadd": dp.pallas_jadd.launches,
+            "digits_jdbl": dp.pallas_jdbl.launches}
+
+
+def g2_edge_pairs(g2h, width):
+    """``width`` G2 point pairs (P_i = [i+1]G2, Q_i = [width+7+i]G2) with
+    the edge rows of the group law first: Q = P, Q = -P, P at infinity, Q
+    at infinity (host affine FQ2 pairs)."""
+    from node_fhe_accelerate_tpu_torch.zk import pairing as pr
+    p_aff = g2h.fixed_base_affine_host(list(range(1, width + 1)))
+    q_aff = g2h.fixed_base_affine_host(list(range(width + 7,
+                                                  2 * width + 7)))
+    q_aff[0] = p_aff[0]
+    q_aff[1] = pr.g2_neg(p_aff[1])
+    p_aff[2] = None
+    q_aff[3] = None
+    return p_aff, q_aff
+
+
+def snark_phase2(dev, seed, worse):
+    """Phase 2 of the SNARK slice: K9 over Fq2 (``_TField2``: the
+    digit-major point ops ``pallas_jadd_t``/``pallas_jdbl_t`` on G2 points)
+    against its plain version at the G2 MSM's 2048-point chunk and at a
+    ragged width, rows against the host G2; and the Fr NTT (one K10
+    product a stage) at d = 4096 and 16384 on the card against the port on
+    the CPU.  Returns the FrNtt objects on the card."""
+    import numpy as np
+    import torch
+    from node_fhe_accelerate_tpu_torch.ops import digits_pallas as dp
+    from node_fhe_accelerate_tpu_torch.zk import pairing as pr
+    from node_fhe_accelerate_tpu_torch.zk.curve_g2 import bn254_g2
+    from node_fhe_accelerate_tpu_torch.zk.field import bn254_fr
+    from node_fhe_accelerate_tpu_torch.zk.fr_ntt import FrNtt
+
+    g2c, g2h = bn254_g2(dev), bn254_g2("cpu")
+    for width in (2048, 1000):
+        p_aff, q_aff = g2_edge_pairs(g2h, width)
+        P, Q = g2c.from_affine_pairs(p_aff), g2c.from_affine_pairs(q_aff)
+        Pc, Qc = g2h.from_affine_pairs(p_aff), g2h.from_affine_pairs(q_aff)
+        k9 = dp._mul_t_raw.launches
+        add = dp.pallas_jadd_t(g2c.fq, P, Q)
+        dbl = dp.pallas_jdbl_t(g2c.fq, P)
+        torch.cuda.synchronize()
+        k9 = dp._mul_t_raw.launches - k9
+        if not k9:
+            raise AssertionError("phase 2 K9 over Fq2: no K9 launch")
+        for op, got, want in (("jadd_t", add, dp.pallas_jadd_t(g2h.fq, Pc,
+                                                                Qc)),
+                              ("jdbl_t", dbl, dp.pallas_jdbl_t(g2h.fq, Pc))):
+            for i, (g, w) in enumerate(zip(got, want)):
+                worse("digits", check_equal(
+                    f"K9 over Fq2 (_TField2) {op} G2 width {width} "
+                    f"coordinate {i}", g.cpu(), w))
+        s_aff = g2c.to_affine_pairs(add)
+        d_aff = g2c.to_affine_pairs(dbl)
+        for i in list(range(6)) + [width - 1]:
+            want_s = pr.g2_add(p_aff[i], q_aff[i])
+            want_d = None if p_aff[i] is None else pr.g2_double(p_aff[i])
+            if (s_aff[i] != want_s) or (d_aff[i] != want_d):
+                raise AssertionError(f"phase 2 K9 over Fq2 width {width}: "
+                                     f"row {i} != the host G2")
+        log(f"phase 2 K9 over Fq2: G2 add and double at width {width}, "
+            f"{k9} K9 launches, == the plain version (bit-exact), edge rows "
+            "(Q = P, Q = -P, P or Q at infinity) and the last row == the "
+            "host G2")
+    rng = np.random.default_rng(seed + 12)
+    ntts = {}
+    for d in FR_NTT_SIZES:
+        fg, fc = FrNtt(bn254_fr(dev), d), FrNtt(bn254_fr("cpu"), d)
+        vals = [int.from_bytes(rng.bytes(40), "little") % fg.f.q
+                for _ in range(d)]
+        a_g, a_c = fg.f.encode(vals), fc.f.encode(vals)
+        k10 = dp.pallas_field_mul.launches
+        fwd = fg.forward(a_g)
+        inv = fg.inverse(fwd)
+        torch.cuda.synchronize()
+        k10 = dp.pallas_field_mul.launches - k10
+        if k10 != 2 * fg.logd + 1:
+            raise AssertionError(f"phase 2 FrNtt d={d}: {k10} K10 launches, "
+                                 f"expected {2 * fg.logd + 1}")
+        fwd_c = fc.forward(a_c)
+        worse("digits", check_equal(f"FrNtt forward d={d} (card vs CPU)",
+                                    fwd.cpu(), fwd_c))
+        worse("digits", check_equal(f"FrNtt inverse d={d} (card vs CPU)",
+                                    inv.cpu(), fc.inverse(fwd_c)))
+        if not torch.equal(inv.cpu(), a_c):
+            raise AssertionError(f"phase 2 FrNtt d={d}: inverse(forward(a))"
+                                 " != a")
+        ntts[d] = (fg, a_g)
+        log(f"phase 2 FrNtt d={d}: forward and inverse on the card == the "
+            f"port on the CPU, inverse(forward(a)) == a; {k10} K10 product "
+            "launches (one a stage, one for d^-1)")
+    return ntts
+
+
+def snark_phase4(dev, zero_counts, counts, voters=ELECTION_VOTERS,
+                 votes=ELECTION_VOTES, tally_n=TALLY_BALLOTS):
+    """Phase 4 of the SNARK slice: the election with eligibility SNARKs
+    through the voting API, its exported package through PublicVerifier
+    and the CLI, the PLONK tally proof, and the seeded Groth16 and PLONK
+    proofs on the card against the port on the CPU.  Returns the timings,
+    launch counts and objects phase 5 reads."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    import torch
+    from node_fhe_accelerate_tpu_torch import cli
+    from node_fhe_accelerate_tpu_torch.api.verify import (PublicVerifier,
+                                                          VerificationPackage)
+    from node_fhe_accelerate_tpu_torch.api.voting import VotingSystem
+    from node_fhe_accelerate_tpu_torch.api.zk import (TallyCorrectnessProof,
+                                                      ZKProofManager)
+    from node_fhe_accelerate_tpu_torch.ops.limbs import limbs_from_ints
+    from node_fhe_accelerate_tpu_torch.utils.dispatch import (
+        global_dispatcher)
+    from node_fhe_accelerate_tpu_torch.zk import circuits, groth16, hashes
+    from node_fhe_accelerate_tpu_torch.zk import plonk
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    races0 = dict(global_dispatcher().selection_table())
+    out = {"secs": {}}
+    secs = out["secs"]
+    # the election: 256 voters (tree depth 8), 3-of-5 keys at
+    # TFHE_128_VOTING, the Groth16 setup on the card at start_election
+    t0 = time.perf_counter()
+    vs = VotingSystem("chip-smoke", num_candidates=4, threshold=(3, 5),
+                      eligibility_snark=True, device=dev)
+    for i in range(voters):
+        vs.register_voter(f"voter-{i}")
+    secs["election keys and registration"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vs.start_election()
+    sync()
+    secs["groth16 setup"] = time.perf_counter() - t0
+    r1cs = vs._elig_setup.r1cs
+    d = groth16._domain_size(r1cs)
+    log(f"phase 4 election: {voters} voters, EligibilityCircuit("
+        f"{vs._elig_circuit.depth}): {r1cs.num_constraints} constraints, "
+        f"{r1cs.num_vars} wires, d = {d}; Groth16 setup on the card "
+        f"{secs['groth16 setup']:.2f} s")
+    # the MSM band races of the path's curve objects, once, outside the
+    # counts: the prover's G1 and G2 MSMs end in a 512-point tail, the
+    # verifier's and the range proofs' MSMs pad to 256
+    prover = vs._elig_prover
+    t0 = time.perf_counter()
+    for curve, n_pad in ((prover.curve, 512), (prover._g2(), 512),
+                         (vs._elig_verifier.curve, 256),
+                         (vs.bp_prover.curve, 256)):
+        disp, op = curve.msm_race()
+        scal = limbs_from_ints(list(range(3, 3 + n_pad)), 8, dev)
+        pts = curve.generator((n_pad,))
+        disp.selection_for(op, scal, tuple(c.contiguous() for c in pts))
+    sync()
+    secs["band races"] = time.perf_counter() - t0
+    # each ballot's eligibility proof timed inside submit_ballot
+    proof_s = []
+    real_prove = prover.prove
+
+    def timed_prove(*a, **kw):
+        t = time.perf_counter()
+        got = real_prove(*a, **kw)
+        sync()
+        proof_s.append(time.perf_counter() - t)
+        return got
+
+    prover.prove = timed_prove
+    zero_counts()
+    ballots, ballot_s = [], []
+    for i, v in enumerate(votes):
+        t0 = time.perf_counter()
+        ballots.append(vs.submit_ballot(f"voter-{i}", v))
+        sync()
+        ballot_s.append(time.perf_counter() - t0)
+    del prover.prove
+    secs["groth16 proof"] = proof_s
+    t0 = time.perf_counter()
+    ok = [vs.verify_ballot(b) for b in ballots]
+    secs["verify_ballot"] = (time.perf_counter() - t0) / len(ballots)
+    out["launches"] = counts()
+    if not all(ok):
+        raise AssertionError(f"phase 4 election: verify_ballot {ok}")
+    if on_card:
+        got = snark_counts()
+        missing = [k for k, v in got.items() if not v]
+        if missing:
+            raise AssertionError(f"phase 4 election: kernels {missing} were "
+                                 f"not launched ({got})")
+        if got["ntt_negacyclic_mul"] != len(votes):
+            raise AssertionError(f"phase 4 election: {got['ntt_negacyclic_mul']}"
+                                 f" K8 launches for {len(votes)} ballots")
+    secs["ballot"] = ballot_s
+    try:
+        vs.submit_ballot("voter-0", 1)
+        raise AssertionError("phase 4 election: a second ballot of voter-0 "
+                             "was taken")
+    except ValueError as e:
+        if "nullifier" not in str(e):
+            raise
+    b0 = ballots[0]
+    pubs = b0.eligibility_publics
+    b0.eligibility_publics = [pubs[0], (pubs[1] + 1) % groth16.R]
+    refused_pub = not vs.verify_ballot(b0)
+    b0.eligibility_publics = pubs
+    good = b0.eligibility_proof
+    b0.eligibility_proof = groth16.Groth16Proof(a=good.c, b=good.b, c=good.a)
+    refused_proof = not vs.verify_ballot(b0)
+    b0.eligibility_proof = good
+    if not (refused_pub and refused_proof and vs.verify_ballot(b0)):
+        raise AssertionError("phase 4 election: swapped publics or a swapped "
+                             "proof verified")
+    vs.end_election()
+    counts_dec = vs.decrypt_tally([1, 3, 5])
+    t_mod = vs.ctx.engine.params.plaintext_modulus
+    want = [votes.count(c) % t_mod for c in range(4)]
+    if [int(c) for c in counts_dec] != want:
+        raise AssertionError(f"phase 4 election: tally {counts_dec} != "
+                             f"{want}")
+    log(f"phase 4 election: {len(votes)} ballots (Groth16 eligibility, "
+        f"8-bit range proof, one-hot encryption) in "
+        f"{[round(x, 3) for x in ballot_s]} s (the eligibility proofs "
+        f"{[round(x, 3) for x in proof_s]} s), each verifies "
+        f"({secs['verify_ballot']:.3f} s a ballot); a second ballot of the "
+        f"same voter refused (nullifier); swapped publics and a swapped "
+        f"proof refused; tally 3-of-5 {list(map(int, counts_dec))} == "
+        f"{want}; launches {nonzero(out['launches'])}")
+    # the exported package: PublicVerifier, then the CLI in a process of
+    # its own, and one flipped proof byte
+    pkg = VerificationPackage.from_voting_system(vs)
+    raw = pkg.to_json()
+    t0 = time.perf_counter()
+    res = PublicVerifier(device=dev).verify_all(
+        VerificationPackage.from_json(raw, device=dev))
+    secs["public verify"] = time.perf_counter() - t0
+    if not (res.valid and res.ballots_valid == len(votes)):
+        raise AssertionError(f"phase 4 package: PublicVerifier {res}")
+    with tempfile.TemporaryDirectory() as tmp:
+        good_path = os.path.join(tmp, "package.json")
+        bad_path = os.path.join(tmp, "tampered.json")
+        with open(good_path, "w") as fh:
+            fh.write(raw)
+        d_raw = json.loads(raw)
+        x = d_raw["ballots"][0]["eligibility"]["c"][0]
+        d_raw["ballots"][0]["eligibility"]["c"][0] = \
+            x[:-1] + str((int(x[-1]) + 1) % 10)
+        with open(bad_path, "w") as fh:
+            fh.write(json.dumps(d_raw))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "node_fhe_accelerate_tpu_torch.cli",
+             "verify", good_path, "--quiet", "--device", str(dev)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs["cli verify"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 4 package: the CLI exited "
+                                 f"{proc.returncode}: {proc.stdout[-800:]}"
+                                 f"{proc.stderr[-800:]}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_bad = cli.main(["verify", bad_path, "--quiet", "--device",
+                               str(dev)])
+        if rc_bad == 0:
+            raise AssertionError("phase 4 package: a flipped proof byte "
+                                 "verified")
+    log(f"phase 4 package: {len(raw)} bytes of JSON; PublicVerifier "
+        f"{res.ballots_valid}/{res.ballots_checked} valid in "
+        f"{secs['public verify']:.2f} s; `python -m "
+        f"node_fhe_accelerate_tpu_torch.cli verify` exit 0 in "
+        f"{secs['cli verify']:.2f} s (its own process: start, build, "
+        f"races); one flipped proof digit: exit {rc_bad}")
+    # the PLONK tally proof over 1024 ballots (n = 2048, the quotient on
+    # 16,384 points) through ZKProofManager
+    mgr = ZKProofManager(device=dev)
+    t0 = time.perf_counter()
+    mgr.init_tally(tally_n)
+    sync()
+    secs["plonk setup"] = time.perf_counter() - t0
+    vals = [(7 * i + 3) % 5 for i in range(tally_n)]
+    zero_counts()
+    t0 = time.perf_counter()
+    tproof = mgr.prove_tally_correctness(vals, sum(vals))
+    sync()
+    secs["plonk prove"] = time.perf_counter() - t0
+    out["plonk launches"] = counts()
+    t0 = time.perf_counter()
+    tres = mgr.verify_tally_correctness(tproof)
+    secs["plonk verify"] = time.perf_counter() - t0
+    wrong = mgr.verify_tally_correctness(TallyCorrectnessProof(
+        proof=tproof.proof, total=tproof.total + 1,
+        num_ballots=tproof.num_ballots))
+    if not tres.valid or wrong.valid:
+        raise AssertionError(f"phase 4 PLONK tally: {tres}, wrong total "
+                             f"{wrong}")
+    setup_n = mgr._tally[4].n
+    log(f"phase 4 PLONK tally: {tally_n} ballots, {len(mgr._tally[0].gates)}"
+        f" gates, n = {setup_n}, quotient on {8 * setup_n} points; setup "
+        f"{secs['plonk setup']:.2f} s, prove {secs['plonk prove']:.2f} s, "
+        f"verify {secs['plonk verify']:.3f} s; a wrong total refused; "
+        f"prove launches {nonzero(out['plonk launches'])}")
+    # seeded proofs: Groth16 at EligibilityCircuit(2) and PLONK at the
+    # 4-gate x*y = z, on the card and in the port on the CPU
+    proofs = {}
+    for where in (dev, torch.device("cpu")):
+        circ = circuits.EligibilityCircuit(2, device=where)
+        p = circ.poseidon
+        tree = hashes.MerkleTree(p, p.f.encode(circ.leaves([12345, 5, 6,
+                                                             7])))
+        path = [int(p.f.decode(x[None])[0]) for x in tree.path(0)]
+        root = int(p.f.decode(tree.root[None])[0])
+        wit = circ.generate_witness(12345, 67890, path, [0, 0], root)
+        gp = groth16.Groth16Prover(rng_seed=5, device=where)
+        t0 = time.perf_counter()
+        gs = gp.setup(circ.r1cs)
+        g_proof = gp.prove(gs, wit.assignment)
+        g_s = time.perf_counter() - t0
+        if not groth16.Groth16Verifier(where).verify(gs, wit.public_inputs,
+                                                     g_proof):
+            raise AssertionError(f"phase 4 seeded Groth16 on {where}: does "
+                                 "not verify")
+        pc = plonk.PlonkCircuit()
+        z = pc.public_input()
+        x_, y_ = pc.new_var(), pc.new_var()
+        xy = pc.mul(x_, y_)
+        pc.assert_equal(xy, z)
+        pp = plonk.PlonkProver(rng_seed=3, device=where)
+        ps = pp.setup(pc, kzg_seed=1)
+        p_proof = pp.prove(ps, {z: 42, x_: 6, y_: 7, xy: 42}, [42])
+        if not plonk.PlonkVerifier(where).verify(ps, [42], p_proof):
+            raise AssertionError(f"phase 4 seeded PLONK on {where}: does "
+                                 "not verify")
+        proofs[where.type] = (g_proof, p_proof, g_s)
+    (gc, pcd, gcs), (gh, ph, ghs) = proofs[dev.type], proofs["cpu"]
+    same_g = (gc.a, gc.c) == (gh.a, gh.c) and gc.b == gh.b
+    same_p = pcd.commits == ph.commits and pcd.evals == ph.evals
+    if not (same_g and same_p):
+        raise AssertionError(f"phase 4 seeded proofs: card != CPU (Groth16 "
+                             f"{same_g}, PLONK {same_p})")
+    log(f"phase 4 seeded proofs: Groth16 at EligibilityCircuit(2) (setup + "
+        f"prove {gcs:.2f} s on the card, {ghs:.2f} s on the CPU) and PLONK "
+        "at x*y = z: the card's proofs == the port's on the CPU, field for "
+        "field; both verify")
+    races = {k: v for k, v in global_dispatcher().selection_table().items()
+             if k not in races0 and k[0].startswith("msm_")}
+    out["races"] = races
+    race_s = sum(4 * sum(v["timings"].values()) for v in races.values())
+    log(f"phase 4 SNARK path: {len(races)} MSM band races (keyed on the "
+        f"curve object and shape; ~{race_s:.1f} s of candidate calls, 4 a "
+        "candidate): " + "; ".join(
+            f"n={k[1][0][0]} -> {v['winner']} (" + ", ".join(
+                f"{c} {t:.3f} s" for c, t in v["timings"].items()) + ")"
+            for k, v in races.items()))
+    out.update(vs=vs, prover=prover, ballots=ballots, mgr=mgr,
+               tproof=tproof, vals=vals)
+    return out
+
+
+def snark_phase5(dev, res, ntts):
+    """Phase 5 of the SNARK slice: the seconds of the Groth16 setup, proof
+    (each ballot's, timed in phase 4) and verify, PLONK setup/prove/verify,
+    FrNtt forward at each size (CUDA events), ballots with proofs per
+    second, and one Groth16 proof under the profiler (device activity
+    only: launches and device time by kernel, the top kernels, and the
+    device's idle share of the proof's wall without the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from node_fhe_accelerate_tpu_torch.timing import cuda_ms
+    from node_fhe_accelerate_tpu_torch.zk import groth16
+    secs = res["secs"]
+    vs, prover = res["vs"], res["prover"]
+    setup = vs._elig_setup
+    circ = vs._elig_circuit
+    # voter 0's witness again, for a verify and the profiled proof
+    f = vs.poseidon.f
+    idx = vs._elig_order.index("voter-0")
+    path = [int(f.decode(s[None])[0]) for s in vs._voter_tree.path(idx)]
+    root = int(f.decode(vs._voter_tree.root[None])[0])
+    wit = circ.generate_witness(vs._vid("voter-0"), vs._voters["voter-0"],
+                                path, [(idx >> k) & 1
+                                       for k in range(circ.depth)], root)
+    b0 = res["ballots"][0]
+    t0 = time.perf_counter()
+    ok = vs._elig_verifier.verify(setup, b0.eligibility_publics,
+                                  b0.eligibility_proof)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("phase 5: the eligibility proof does not "
+                             "verify")
+    ntt_ms = {d: cuda_ms(lambda: fg.forward(a), 5, warmup=1)
+              for d, (fg, a) in ntts.items()}
+    prove_s = secs["groth16 proof"]
+    ballot_rate = len(secs["ballot"]) / sum(secs["ballot"])
+    log(f"phase 5 SNARK: Groth16 (d = {groth16._domain_size(setup.r1cs)}) "
+        f"setup {secs['groth16 setup']:.3f} s, one proof "
+        f"{[round(x, 3) for x in prove_s]} s, one verify {verify_s:.3f} s; "
+        f"PLONK tally ({TALLY_BALLOTS} ballots) setup "
+        f"{secs['plonk setup']:.3f} s, prove {secs['plonk prove']:.3f} s, "
+        f"verify {secs['plonk verify']:.3f} s; FrNtt forward " + ", ".join(
+            f"d={d} {ms:.3f} ms" for d, ms in ntt_ms.items())
+        + f"; ballots with proofs {ballot_rate:.4f}/s "
+        f"({[round(x, 3) for x in secs['ballot']]} s each); the band races "
+        f"{secs['band races']:.2f} s once")
+    # a proof launches some 10^5-10^6 kernels: read the profiler's raw
+    # events (key_averages builds a Python event tree over all of them,
+    # which took longer than the rest of this run); skipped, and said so,
+    # where the run has too little of its time limit left for it
+    if time.perf_counter() - _START > PROFILE_BEFORE_S:
+        log(f"phase 5 SNARK: Groth16 proof device split not measured (the "
+            f"run is past {PROFILE_BEFORE_S} s of its 1200 s)")
+        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prover.prove(setup, wit.assignment)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    kern = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                  reverse=True)
+    busy, count = sum(k[0] for k in kern), sum(k[1] for k in kern)
+    log(f"phase 5 SNARK: {len(by_name)} kernel names, {count} device "
+        f"events read in {time.perf_counter() - t0:.1f} s")
+    if not busy:
+        log("phase 5 SNARK: Groth16 proof device split not measured (the "
+            "profiler recorded no device events)")
+        return
+    groups = {}
+    for label, name_in, tag in (
+            ("K9", "mont_mul_kernel", "true>"),
+            ("K10 product", "mont_mul_kernel", "false>"),
+            ("K10 point add", "point_kernel", "true>"),
+            ("K10 point double", "point_kernel", "false>")):
+        mine = [k for k in kern if name_in in k[2] and tag in k[2]]
+        groups[label] = (sum(k[0] for k in mine), sum(k[1] for k in mine))
+    other = (busy - sum(v[0] for v in groups.values()),
+             count - sum(v[1] for v in groups.values()))
+    plain = min(prove_s)
+    log(f"phase 5 SNARK: one Groth16 proof under the profiler (device "
+        f"activity), {wall:.3f} s ({plain:.3f} s without it): device busy "
+        f"{busy / 1e6:.4f} s, idle share "
+        f"{100 * (1 - busy / (plain * 1e6)):.1f}% of the proof without the "
+        f"profiler ({100 * (1 - busy / (wall * 1e6)):.1f}% under it); "
+        f"{count} launches: " + "; ".join(
+            f"{k} {us / 1e3:.2f} ms in {n}" for k, (us, n) in groups.items())
+        + f"; other kernels {other[0] / 1e3:.2f} ms in {other[1]}; the most "
+        "time: " + "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
+                             for us, cnt, key in kern[:6]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -522,7 +1022,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    print(smi, flush=True)              # as nvidia-smi prints it
     sm_mhz = max_sm_mhz()
     name = torch.cuda.get_device_name(0)
     peak_ops, peak_bytes = PEAKS[variant(name)]
@@ -662,6 +1162,9 @@ def main() -> int:
     log("phase 2 digits: the point kernel == the formulas over the field "
         "on the CPU, BN254 and BLS12-381, B = 1, 32, 1000")
     del P, Q, R, add, dbl
+    # the SNARK slice's shapes: K9 over Fq2 at the G2 MSM's widths, the Fr
+    # NTT (K10's product a stage) at d = 4096 and 16384
+    snark_ntts = snark_phase2(dev, args.seed, worse)
     # the NTT kernels against NTTContext, on canonical random residues
     ntts = {}
 
@@ -1277,16 +1780,20 @@ def main() -> int:
             f"{got_eq['digits_mul']}")
 
     # a 64-bit Bulletproofs range proof on the card (the JAX suite's
-    # bp_range_prove_64 / bp_range_verify_64 rows), field for field equal
-    # to the proof the port makes on the CPU from the same seed
+    # bp_range_prove_64 / bp_range_verify_64 rows); then an 8-bit proof
+    # from the same seed on the card and in the port on the CPU, field for
+    # field equal (the CPU's 64-bit proof took ~70 s of the run)
     value = int.from_bytes(np.random.default_rng(9).bytes(8), "little")
-    proofs, bp_secs = {}, {}
-    for where in ("cuda", "cpu"):
-        curve = bn254_g1(where)
-        gens = BulletproofsGens.generate(curve, BP_BITS)
+    proofs, bp_secs, bp_curves = {}, {}, {}
+    for where, bits in (("cuda", BP_BITS), ("cuda", BP_CMP_BITS),
+                        ("cpu", BP_CMP_BITS)):
+        first = where not in bp_curves
+        curve = bp_curves.setdefault(where, bn254_g1(where))
+        gens = BulletproofsGens.generate(curve, bits)
         prover = BulletproofsProver(curve, rng_seed=args.seed + 3)
         blinding = prover.random_scalar()
-        if where == "cuda":
+        bit_value = value % (1 << bits)
+        if where == "cuda" and first:
             # every MSM of the proof pads to n=256, inside the band: race
             # this curve's candidates once, outside the timed prove
             disp, op = curve.msm_race()
@@ -1301,25 +1808,25 @@ def main() -> int:
                 "(seconds per call: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in sel["timings"].items())
                 + ")")
-        com = prover.commit(value, blinding, gens)
+        com = prover.commit(bit_value, blinding, gens)
         zero_counts()
         t0 = time.perf_counter()
-        proof = prover.prove_range(value, blinding, BP_BITS, gens)
+        proof = prover.prove_range(bit_value, blinding, bits, gens)
         if where == "cuda":
             torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
         bp_counts = counts()
         verifier = BulletproofsVerifier(curve)
         t0 = time.perf_counter()
-        ok = verifier.verify_range(com, proof, BP_BITS, gens)
+        ok = verifier.verify_range(com, proof, bits, gens)
         verify_s = time.perf_counter() - t0
         path_counts = counts()              # prove and verify
-        proofs[where] = (affine(curve, com.point), proof)
-        bp_secs[where] = (prove_s, verify_s)
+        proofs[where, bits] = (affine(curve, com.point), proof)
+        bp_secs[where, bits] = (prove_s, verify_s)
         if not ok:
-            raise AssertionError(f"phase 4: the 64-bit proof made on {where} "
-                                 "does not verify")
-        if where == "cuda":
+            raise AssertionError(f"phase 4: the {bits}-bit proof made on "
+                                 f"{where} does not verify")
+        if where == "cuda" and bits == BP_BITS:
             # the proof's MSMs and ladders and the verifier's MSM run the
             # point kernel, and K9 when the Pippenger won the band race
             need = ("digits_jadd", "digits_jdbl") + (
@@ -1339,7 +1846,8 @@ def main() -> int:
                 f"{bp_counts['digits_jadd']} and doubles "
                 f"{bp_counts['digits_jdbl']}; with verify_range: "
                 f"{path_counts}; tampered t_hat refused")
-    (com_g, pg), (com_c, pc) = proofs["cuda"], proofs["cpu"]
+    (com_g, pg) = proofs["cuda", BP_CMP_BITS]
+    (com_c, pc) = proofs["cpu", BP_CMP_BITS]
     fields = ("A", "S", "T1", "T2", "t_hat", "tau_x", "mu")
     if com_g != com_c or any(getattr(pg, k) != getattr(pc, k)
                              for k in fields) \
@@ -1347,10 +1855,14 @@ def main() -> int:
             (pc.inner.L, pc.inner.R, pc.inner.a, pc.inner.b):
         raise AssertionError("phase 4: the proof made on the card != the "
                              "proof made on the CPU")
-    log(f"phase 4: {BP_BITS}-bit range proof: card == CPU field for field; "
-        f"verifies on both; prove {bp_secs['cuda'][0]:.3f} s on the card, "
-        f"{bp_secs['cpu'][0]:.3f} s on the CPU; verify "
-        f"{bp_secs['cuda'][1]:.3f} s / {bp_secs['cpu'][1]:.3f} s")
+    log(f"phase 4: {BP_BITS}-bit range proof on the card: prove "
+        f"{bp_secs['cuda', BP_BITS][0]:.3f} s, verify "
+        f"{bp_secs['cuda', BP_BITS][1]:.3f} s; {BP_CMP_BITS}-bit range "
+        f"proof: card == CPU field for field; verifies on both; prove "
+        f"{bp_secs['cuda', BP_CMP_BITS][0]:.3f} s on the card, "
+        f"{bp_secs['cpu', BP_CMP_BITS][0]:.3f} s on the CPU; verify "
+        f"{bp_secs['cuda', BP_CMP_BITS][1]:.3f} s / "
+        f"{bp_secs['cpu', BP_CMP_BITS][1]:.3f} s")
 
     # the default constructor, TfheEngine(params): "auto" races "pallas"
     # and "mxu" on the first bootstrap of a batch shape (here, outside every
@@ -1912,6 +2424,14 @@ def main() -> int:
         f"launches {spec_counts}")
     del every, many, want_many, lwe_r
 
+    # the SNARK slice: the 256-voter election with eligibility SNARKs, its
+    # package through PublicVerifier and the CLI, the PLONK tally proof,
+    # seeded proofs card == CPU; the kernels' launch counts in the JSON
+    # record are this path's for the kernels it runs
+    snark = snark_phase4(dev, zero_counts, counts)
+    for k in snark_counts():
+        launches[k] = snark["launches"][k]
+
     # ---- phase 5: timings
     lvl, planes = pk4.pbs_level, row.shape[-2]
     macs, io_bytes = step_work(BATCH, kp1, n, lvl, planes)
@@ -2254,8 +2774,8 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
     log(f"phase 5: msm_bn254_4096 wall {[round(x, 4) for x in walls]} s; "
         f"BLS12-381 n={MSM_BLS_N} msm {msm_runs['bls12_381'][3]:.4f} s; "
-        f"prove_range {BP_BITS} {bp_secs['cuda'][0]:.3f} s, verify_range "
-        f"{bp_secs['cuda'][1]:.3f} s")
+        f"prove_range {BP_BITS} {bp_secs['cuda', BP_BITS][0]:.3f} s, "
+        f"verify_range {bp_secs['cuda', BP_BITS][1]:.3f} s")
     # where one msm_bn254_4096 spends its time: every point op of one call
     # on the host clock between synchronizes, by kind and width (the rest
     # is the sorts, gathers and searches around them) ...
@@ -2330,6 +2850,8 @@ def main() -> int:
     else:
         log("phase 5: msm_bn254_4096 device split and idle share not "
             "measured (the profiler recorded no device events)")
+
+    snark_phase5(dev, snark, snark_ntts)
 
     src = "node_fhe_accelerate_tpu_torch/csrc/"
     ref = "node_fhe_accelerate_tpu/ops/pallas_cmux.py:"

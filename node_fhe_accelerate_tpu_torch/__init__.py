@@ -27,7 +27,14 @@ reproduces, bit for bit in PyTorch:
   (``zk/field.py``, ``field2.py``), G1 with the Pippenger MSM
   (``zk/curve.py``), Poseidon and the transcript (``zk/hashes.py``) and
   Bulletproofs range proofs (``zk/bulletproofs.py``), with every field
-  product a Montgomery-multiply kernel (``csrc/digits.cu``).
+  product a Montgomery-multiply kernel (``csrc/digits.cu``);
+* the rest of its ZK stack and the election built on it: the Fr NTT
+  (``zk/fr_ntt.py``), the BN254/BLS12-381 pairings (``zk/pairing.py``,
+  ``pairing_bls.py``), G2 (``zk/curve_g2.py``), KZG/FRI
+  (``zk/commitments.py``), Groth16 and its circuits (``zk/groth16.py``,
+  ``circuits.py``), PLONK (``zk/plonk.py``), and ``api/zk.py``
+  ``ZKProofManager``, ``api/voting.py`` ``VotingSystem``, ``api/verify.py``
+  ``PublicVerifier`` with the verification CLI (``cli.py``).
 
 Module names mirror the JAX package so each function's counterpart is found
 at the same path.

@@ -23,7 +23,10 @@ __all__ = ["bsk_from_numpy", "bsk_to_numpy", "lwe_from_numpy",
            "threshold_keys_from_numpy", "rns_poly_from_numpy",
            "rns_poly_to_numpy", "rns_relin_key_from_numpy",
            "rns_relin_key_to_numpy", "ckks_ciphertext_from_numpy",
-           "ckks_ciphertext_to_numpy"]
+           "ckks_ciphertext_to_numpy", "r1cs_from_jax",
+           "groth16_setup_from_jax", "groth16_proof_from_jax",
+           "kzg_setup_from_jax", "plonk_setup_from_jax",
+           "plonk_proof_from_jax"]
 
 
 def _i8_tensor(arr, dev):
@@ -268,3 +271,142 @@ def ckks_ciphertext_to_numpy(ct) -> tuple:
     return (rns_poly_to_numpy(ct.c0), rns_poly_to_numpy(ct.c1),
             None if ct.c2 is None else rns_poly_to_numpy(ct.c2), ct.level,
             ct.scale)
+
+
+# ---------------------------------------------------------------------------
+# SNARK state: Groth16, KZG and PLONK setups and proofs.  Each takes the JAX
+# package's object and reads it by attribute (points as numpy arrays of
+# their digit planes, FQ2 values by their coefficients); nothing here
+# imports the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _points(pts, dev):
+    """(X, Y, Z) digit arrays (any array type numpy reads) -> tensors on
+    ``dev``; None stays None."""
+    if pts is None:
+        return None
+    return tuple(digits_from_numpy(c, dev) for c in pts)
+
+
+def _fq2_pair(host_mod, p):
+    """An affine (FQ2, FQ2) pair of the JAX pairing tower -> the port's
+    tower ``host_mod``; None (infinity) stays None."""
+    if p is None:
+        return None
+    return tuple(host_mod.FQ2([int(c) for c in x.coeffs]) for x in p)
+
+
+def r1cs_from_jax(r1cs):
+    """A JAX ``R1CS`` -> the port's (the constraint dicts copied)."""
+    from .zk.groth16 import R1CS
+    return R1CS(num_vars=int(r1cs.num_vars), num_public=int(r1cs.num_public),
+                constraints=[tuple({int(k): int(v) for k, v in part.items()}
+                                   for part in con)
+                             for con in r1cs.constraints])
+
+
+def groth16_setup_from_jax(setup, device=None):
+    """A JAX ``Groth16Setup`` -> the port's on ``device``: the G1 query
+    points, the G2 affine pairs, and the device-encoded G2 query where the
+    JAX setup carries one (``_b_query_g2_dev``).  The compiled circuit is
+    rebuilt from the R1CS by the first prover that needs it."""
+    from .zk import pairing as pr
+    from .zk.groth16 import Groth16Setup
+    dev = resolve_device(device)
+    out = Groth16Setup(
+        r1cs=r1cs_from_jax(setup.r1cs),
+        alpha_g1=_points(setup.alpha_g1, dev),
+        beta_g1=_points(setup.beta_g1, dev),
+        delta_g1=_points(setup.delta_g1, dev),
+        a_query=_points(setup.a_query, dev),
+        b_query_g1=_points(setup.b_query_g1, dev),
+        l_query=_points(setup.l_query, dev),
+        h_query=_points(setup.h_query, dev),
+        beta_g2=_fq2_pair(pr, setup.beta_g2),
+        delta_g2=_fq2_pair(pr, setup.delta_g2),
+        gamma_g2=_fq2_pair(pr, setup.gamma_g2),
+        b_query_g2=[_fq2_pair(pr, p) for p in setup.b_query_g2],
+        ic=_points(setup.ic, dev))
+    b_dev = getattr(setup, "_b_query_g2_dev", None)
+    if b_dev is not None:
+        out._b_query_g2_dev = {str(dev): _points(b_dev, dev)}
+    return out
+
+
+def groth16_proof_from_jax(proof):
+    """A JAX ``Groth16Proof`` -> the port's (ints and FQ2 pairs)."""
+    from .zk import pairing as pr
+    from .zk.groth16 import Groth16Proof
+
+    def g1(p):
+        return None if p is None else (int(p[0]), int(p[1]))
+
+    return Groth16Proof(a=g1(proof.a), b=_fq2_pair(pr, proof.b),
+                        c=g1(proof.c))
+
+
+def kzg_setup_from_jax(setup, device=None):
+    """A JAX ``KZGSetup`` -> the port's on ``device``: the same curve
+    (BN254 or BLS12-381 G1, by its order), the SRS points, tau and the G2
+    pair of the matching pairing tower."""
+    from .zk import pairing as pr
+    from .zk import pairing_bls as prb
+    from .zk.commitments import KZGSetup
+    from .zk.curve import bls12_381_g1, bn254_g1
+    dev = resolve_device(device)
+    order = int(setup.curve.order)
+    curve, pm = ((bn254_g1(dev), pr) if order == pr.R
+                 else (bls12_381_g1(dev), prb))
+    if curve.order != order:
+        raise ValueError("no port curve of this order")
+    return KZGSetup(curve=curve, powers=_points(setup.powers, dev),
+                    max_degree=int(setup.max_degree),
+                    tau=None if setup.tau is None else int(setup.tau),
+                    h2=_fq2_pair(pm, setup.h2),
+                    tau_h2=_fq2_pair(pm, setup.tau_h2))
+
+
+def plonk_setup_from_jax(setup, device=None):
+    """A JAX ``PlonkSetup`` -> the port's on ``device`` (the circuit's
+    gates, the KZG setup, the polynomials and their commitments, the
+    coefficient planes)."""
+    from .zk.plonk import Gate, PlonkCircuit, PlonkSetup
+    dev = resolve_device(device)
+    src = setup.circuit
+    circuit = PlonkCircuit()
+    circuit.gates = [Gate(*(int(getattr(g, k)) for k in
+                            ("ql", "qr", "qo", "qm", "qc", "a", "b", "c")))
+                     for g in src.gates]
+    circuit._num_vars = int(src._num_vars)
+    circuit.public_gates = [int(r) for r in src.public_gates]
+
+    def ints(xs):
+        return None if xs is None else [int(x) for x in xs]
+
+    def planes(a):
+        return None if a is None else digits_from_numpy(a, dev)
+
+    return PlonkSetup(
+        circuit=circuit, n=int(setup.n),
+        kzg=kzg_setup_from_jax(setup.kzg, dev),
+        selector_polys={k: ints(v) for k, v in setup.selector_polys.items()},
+        selector_commits={k: _points(v, dev)
+                          for k, v in setup.selector_commits.items()},
+        sigma_polys=[ints(p) for p in setup.sigma_polys],
+        sigma_commits=[_points(p, dev) for p in setup.sigma_commits],
+        domain=ints(setup.domain),
+        sigma_tags=None if setup.sigma_tags is None
+        else [ints(t) for t in setup.sigma_tags],
+        sel_planes=planes(setup.sel_planes),
+        sig_planes=planes(setup.sig_planes),
+        l1_poly=ints(setup.l1_poly), l1_plane=planes(setup.l1_plane))
+
+
+def plonk_proof_from_jax(proof):
+    """A JAX ``PlonkProof`` -> the port's (affine triples and ints)."""
+    from .zk.plonk import PlonkProof
+    return PlonkProof(
+        commits={k: (int(v[0]), int(v[1]), bool(v[2]))
+                 for k, v in proof.commits.items()},
+        evals={k: int(v) for k, v in proof.evals.items()})

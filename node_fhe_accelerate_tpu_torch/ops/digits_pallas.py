@@ -321,7 +321,9 @@ _tfield_cache: dict = {}
 
 
 def _tfield(field):
-    key = (field.q, field.n_limbs)
+    """The digit-major twin of ``field``, one per (modulus, width, device):
+    its constants live on the field's device."""
+    key = (field.q, field.n_limbs, str(field.device))
     tf = _tfield_cache.get(key)
     if tf is None:
         tf = _TField2(field) if hasattr(field, "base") else _TField(field)

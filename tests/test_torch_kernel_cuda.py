@@ -31,7 +31,7 @@ from node_fhe_accelerate_tpu_torch.ops import cmux as cmux_ops
 from node_fhe_accelerate_tpu_torch.ops import digits, limbs
 from node_fhe_accelerate_tpu_torch.ops.digits_pallas import (
     _mul_t_raw, jadd_reference, jdbl_reference, pallas_field_mul,
-    pallas_jadd, pallas_jdbl)
+    pallas_jadd, pallas_jadd_t, pallas_jdbl, pallas_jdbl_t)
 from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
 from node_fhe_accelerate_tpu_torch.zk import curve as zk_curve
 from node_fhe_accelerate_tpu_torch.zk import field as zk_field
@@ -858,3 +858,80 @@ def test_u64_shl_on_card_matches_cpu(cuda_device, k):
                                                          k)))
     want = np.array([(int(v) << k) % (1 << 64) for v in x], dtype=np.uint64)
     np.testing.assert_array_equal(got, want)
+
+
+def _g2_pairs(g2h, width):
+    """width G2 point pairs with the group law's edge rows first (Q = P,
+    Q = -P, P at infinity, Q at infinity), as host affine pairs."""
+    from node_fhe_accelerate_tpu_torch.zk import pairing as pr
+    p = g2h.fixed_base_affine_host(list(range(1, width + 1)))
+    q = g2h.fixed_base_affine_host(list(range(width + 7, 2 * width + 7)))
+    q[0], q[1] = p[0], pr.g2_neg(p[1])
+    p[2], q[3] = None, None
+    return p, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2048, 1000])
+def test_k9_over_fq2_matches_plain(cuda_device, width):
+    """K9 through ``_TField2`` (the digit-major G2 add and double of the G2
+    MSM's 2048-point chunks) equals its plain version on the CPU, at 2048
+    points and at a ragged width."""
+    from node_fhe_accelerate_tpu_torch.zk.curve_g2 import bn254_g2
+    g2c, g2h = bn254_g2(cuda_device), bn254_g2("cpu")
+    p, q = _g2_pairs(g2h, width)
+    P, Q = g2c.from_affine_pairs(p), g2c.from_affine_pairs(q)
+    Pc, Qc = g2h.from_affine_pairs(p), g2h.from_affine_pairs(q)
+    before = _mul_t_raw.launches
+    add = pallas_jadd_t(g2c.fq, P, Q)
+    dbl = pallas_jdbl_t(g2c.fq, P)
+    torch.cuda.synchronize()
+    assert _mul_t_raw.launches > before
+    for got, want in ((add, pallas_jadd_t(g2h.fq, Pc, Qc)),
+                      (dbl, pallas_jdbl_t(g2h.fq, Pc))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2048, 40])
+def test_g2_add_double_on_card_match_cpu(cuda_device, width):
+    """``G2Curve.add``/``double`` on the card (K9 over Fq2 at 2048 points,
+    the formulas over Field2 with K10's product below) equal the CPU on
+    both sides of 2048 points."""
+    from node_fhe_accelerate_tpu_torch.zk.curve_g2 import bn254_g2
+    g2c, g2h = bn254_g2(cuda_device), bn254_g2("cpu")
+    p, q = _g2_pairs(g2h, width)
+    P, Q = g2c.from_affine_pairs(p), g2c.from_affine_pairs(q)
+    Pc, Qc = g2h.from_affine_pairs(p), g2h.from_affine_pairs(q)
+    assert g2c._path(P, Q) == ("k9" if width >= 2048 else "formula")
+    k10 = pallas_field_mul.launches
+    for got, want in ((g2c.add(P, Q), g2h.add(Pc, Qc)),
+                      (g2c.double(P), g2h.double(Pc))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    if width < 2048:
+        assert pallas_field_mul.launches > k10
+
+
+@pytest.mark.cuda
+def test_fr_ntt_on_card_matches_cpu(cuda_device):
+    """The Fr NTT at d = 4096 on the card (one launch of K10's product a
+    stage) equals the port on the CPU: forward, inverse and
+    negacyclic_mul."""
+    from node_fhe_accelerate_tpu_torch.zk.fr_ntt import FrNtt
+    d = 4096
+    fg = FrNtt(zk_field.bn254_fr(cuda_device), d)
+    fc = FrNtt(zk_field.bn254_fr("cpu"), d)
+    rng = np.random.default_rng(4)
+    vals = [int.from_bytes(rng.bytes(40), "little") % fg.f.q
+            for _ in range(2 * d)]
+    a, b = fg.f.encode(vals[:d]), fg.f.encode(vals[d:])
+    ac, bc = fc.f.encode(vals[:d]), fc.f.encode(vals[d:])
+    before = pallas_field_mul.launches
+    fwd = fg.forward(a)
+    assert pallas_field_mul.launches - before == fg.logd
+    assert torch.equal(fwd.cpu(), fc.forward(ac))
+    assert torch.equal(fg.inverse(fwd).cpu(), ac)
+    assert torch.equal(fg.negacyclic_mul(a, b).cpu(),
+                       fc.negacyclic_mul(ac, bc))
