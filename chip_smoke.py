@@ -135,17 +135,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``eligibility_snark=True``) with 256 registered voters (a Poseidon
    Merkle tree of depth 8; EligibilityCircuit(8), d = 4096), the Groth16
    setup on the card, the MSM band races of the path's curve objects
-   once, 2 ballots (each a Groth16 eligibility proof: G1 MSMs, the G2 MSM
+   once, 1 ballot (a Groth16 eligibility proof: G1 MSMs, the G2 MSM
    whose 2048-point chunk runs K9 over Fq2, the h-pipeline on the Fr NTT;
-   an 8-bit range proof; one K8 ``encrypt_packed``), each verifying, a
-   second ballot of one voter refused (nullifier), swapped publics and a
+   an 8-bit range proof; one K8 ``encrypt_packed``), verifying, a
+   second ballot of the voter refused (nullifier), swapped publics and a
    swapped proof refused, the tally decrypted 3-of-5 to the votes mod t;
    the exported package through ``PublicVerifier`` and through ``python
    -m node_fhe_accelerate_tpu_torch.cli verify`` (exit 0), one flipped
    proof digit failing it; ``ZKProofManager.init_tally(1024)`` and one
    PLONK tally proof (n = 2048, the quotient on 16,384 points) verifying,
-   a wrong total refused; and seeded Groth16 (EligibilityCircuit(2)) and
-   PLONK (x*y = z) proofs on the card equal to the port's on the CPU;
+   a wrong total refused; and seeded Groth16 (EligibilityCircuit(0), one
+   voter, on the election prover's curve objects, whose band races it
+   reuses) and PLONK (x*y = z) proofs on the card equal to the port's on
+   the CPU;
 5. timings with CUDA events for each kernel (kernel, plain version, its
    bound, and torch._int_mm on the same int8 contraction as a yardstick;
    the NTT kernels as device time of back-to-back launches, a spin kernel
@@ -172,7 +174,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and one verify, the PLONK tally's setup, prove and verify, one FrNtt
    forward at d = 4096 and 16384 (CUDA events), ballots with proofs per
    second, and one Groth16 proof under torch.profiler (launches and
-   device time by kernel, the device's idle share).
+   device time by kernel, the device's idle share);
+6. the multi-device slice on a mesh of 4 positions (4 cards when the
+   machine has them, else the first card four times; the log says which),
+   after the timings, each item run once under device-only tracing (the
+   device's busy time) and once alone with the counts set to 0 before and
+   read after it (wall, launches, idle share, bytes moved between
+   positions): the sharded bootstrap at TFHE_BOOT_128_K4, batch
+   4096 (1024 a position, the key held once per distinct device) through
+   "pallas_fused", "pallas" and "mxu_fused", each bit-equal to the
+   unsharded bootstrap and decoded, 0 bytes between positions; the sharded
+   tally (4096 one-hot ballots at the ballot shape, 1024 encrypted a
+   position, reduced, joined by ``psum_mod``), bit-equal to the unsharded
+   ``batch_add`` and decoded to the counts; ``DistPolyRing`` multiply at
+   N=8192 (Q_40_1) and 16384 (Q_60_1) bit-equal to ``PolyRing.multiply``,
+   ``EncryptionEngine`` over it at N=8192 (keys, 3 encryptions, tally,
+   decrypt), and one CKKS_128_ML ``multiply_relin_rescale`` over five
+   distributed primes, c0 bit-equal to the single-ring engine's, error
+   below 1e-3; msm_bn254_4096 sharded (4 Pippengers of 1024 and the
+   combine of 3 partial points) equal to the host Pippenger; ``MxuNTT`` at
+   N=1024, batch 256, card == CPU and rows against the oracle;
+   ``scaling_report`` (the sharded bootstrap through "pallas_fused" at 1,
+   2 and 4 positions, 1024 a position, and the collective rows) and
+   ``bench_suite`` (warmup 1, iters 2: memory, modmul, ntt, poly_mul and
+   the pbs_n630_N256_l2_k4 rows, every row correct), written under
+   build/chip_smoke/; and ``profiling.trace`` around one sharded
+   bootstrap, whose Chrome trace must hold its CUDA kernel events.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -180,7 +207,9 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
+import io
 import json
 import math
 import os
@@ -456,23 +485,37 @@ def same_lwe(x, y):
     return torch.equal(x.a, y.a) and torch.equal(x.b, y.b)
 
 
-def profile_call(fn):
-    """One call of ``fn`` under torch.profiler, ending in a synchronize:
-    (wall s, device-busy us, device launches, [(us, count, kernel)] by
-    device time, largest first); busy 0 where the profiler recorded no
-    device events."""
+def device_trace(fn, devices=(None,)):
+    """One call of ``fn`` under torch.profiler with device activity only,
+    ending in a synchronize of each of ``devices`` (the current card by
+    default): (result, wall s, [(device us, launches, kernel)] by device
+    time, largest first), read from the profiler's raw events
+    (key_averages builds a Python event tree over every event, which takes
+    minutes at 10^5-10^6 launches).  The profiler slows the host: a caller
+    divides the busy time by the wall of a call without it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        out = fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
         wall = time.perf_counter() - t0
-    kern = sorted(((getattr(e, "self_device_time_total", 0), e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return out, wall, sorted(((us, n, name) for name, (us, n)
+                              in by_name.items()), reverse=True)
+
+
+def profile_call(fn):
+    """``device_trace`` of one call: (wall s under the profiler,
+    device-busy us, device launches, [(us, count, kernel)] largest first);
+    busy 0 where the profiler recorded no device events."""
+    _, wall, kern = device_trace(fn)
     return wall, sum(k[0] for k in kern), sum(k[1] for k in kern), kern
 
 
@@ -498,10 +541,11 @@ def profile_line(label, fn, plain_ms):
 
 
 ELECTION_VOTERS = 256      # tree depth 8, ZKProofManager's default
-ELECTION_VOTES = [3, 1]    # ~33 s a ballot on the card: G2 is host-bound
+ELECTION_VOTES = [3]       # ~33 s a ballot on the card: G2 is host-bound
 TALLY_BALLOTS = 1024       # n = 2048, the quotient on 16,384 points
 FR_NTT_SIZES = (4096, 16384)
 PROFILE_BEFORE_S = 950     # the proof under the profiler takes ~1-2 min
+SEEDED_DEPTH = 0           # the seeded Groth16's tree: one voter
 
 
 def snark_counts():
@@ -628,7 +672,7 @@ def snark_phase4(dev, zero_counts, counts, voters=ELECTION_VOTERS,
     from node_fhe_accelerate_tpu_torch.ops.limbs import limbs_from_ints
     from node_fhe_accelerate_tpu_torch.utils.dispatch import (
         global_dispatcher)
-    from node_fhe_accelerate_tpu_torch.zk import circuits, groth16, hashes
+    from node_fhe_accelerate_tpu_torch.zk import circuits, groth16
     from node_fhe_accelerate_tpu_torch.zk import plonk
     on_card = dev.type == "cuda"
 
@@ -814,18 +858,18 @@ def snark_phase4(dev, zero_counts, counts, voters=ELECTION_VOTERS,
         f"{secs['plonk setup']:.2f} s, prove {secs['plonk prove']:.2f} s, "
         f"verify {secs['plonk verify']:.3f} s; a wrong total refused; "
         f"prove launches {nonzero(out['plonk launches'])}")
-    # seeded proofs: Groth16 at EligibilityCircuit(2) and PLONK at the
-    # 4-gate x*y = z, on the card and in the port on the CPU
+    # seeded proofs: Groth16 at EligibilityCircuit(0) (one registered
+    # voter: the root is its leaf; 491 wires, so its G2 MSM pads to the
+    # 512 points whose band race the election ran on the same curve
+    # objects) and PLONK at the 4-gate x*y = z, on the card and in the port
+    # on the CPU
     proofs = {}
     for where in (dev, torch.device("cpu")):
-        circ = circuits.EligibilityCircuit(2, device=where)
-        p = circ.poseidon
-        tree = hashes.MerkleTree(p, p.f.encode(circ.leaves([12345, 5, 6,
-                                                             7])))
-        path = [int(p.f.decode(x[None])[0]) for x in tree.path(0)]
-        root = int(p.f.decode(tree.root[None])[0])
-        wit = circ.generate_witness(12345, 67890, path, [0, 0], root)
+        circ = circuits.EligibilityCircuit(SEEDED_DEPTH, device=where)
+        wit = circ.generate_witness(12345, 67890, [], [], circ.leaf(12345))
         gp = groth16.Groth16Prover(rng_seed=5, device=where)
+        if where == dev and on_card:
+            gp.curve, gp._g2_curve = prover.curve, prover._g2()
         t0 = time.perf_counter()
         gs = gp.setup(circ.r1cs)
         g_proof = gp.prove(gs, wit.assignment)
@@ -852,7 +896,8 @@ def snark_phase4(dev, zero_counts, counts, voters=ELECTION_VOTERS,
     if not (same_g and same_p):
         raise AssertionError(f"phase 4 seeded proofs: card != CPU (Groth16 "
                              f"{same_g}, PLONK {same_p})")
-    log(f"phase 4 seeded proofs: Groth16 at EligibilityCircuit(2) (setup + "
+    log(f"phase 4 seeded proofs: Groth16 at EligibilityCircuit("
+        f"{SEEDED_DEPTH}) (setup + "
         f"prove {gcs:.2f} s on the card, {ghs:.2f} s on the CPU) and PLONK "
         "at x*y = z: the card's proofs == the port's on the CPU, field for "
         "field; both verify")
@@ -878,9 +923,6 @@ def snark_phase5(dev, res, ntts):
     second, and one Groth16 proof under the profiler (device activity
     only: launches and device time by kernel, the top kernels, and the
     device's idle share of the proof's wall without the profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from node_fhe_accelerate_tpu_torch.timing import cuda_ms
     from node_fhe_accelerate_tpu_torch.zk import groth16
     secs = res["secs"]
@@ -917,30 +959,18 @@ def snark_phase5(dev, res, ntts):
         + f"; ballots with proofs {ballot_rate:.4f}/s "
         f"({[round(x, 3) for x in secs['ballot']]} s each); the band races "
         f"{secs['band races']:.2f} s once")
-    # a proof launches some 10^5-10^6 kernels: read the profiler's raw
-    # events (key_averages builds a Python event tree over all of them,
-    # which took longer than the rest of this run); skipped, and said so,
-    # where the run has too little of its time limit left for it
+    # a proof launches some 10^5-10^6 kernels; skipped, and said so, where
+    # the run has too little of its time limit left for it
     if time.perf_counter() - _START > PROFILE_BEFORE_S:
         log(f"phase 5 SNARK: Groth16 proof device split not measured (the "
             f"run is past {PROFILE_BEFORE_S} s of its 1200 s)")
         return
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prover.prove(setup, wit.assignment)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            us, n = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
-    kern = sorted(((us, n, name) for name, (us, n) in by_name.items()),
-                  reverse=True)
-    busy, count = sum(k[0] for k in kern), sum(k[1] for k in kern)
-    log(f"phase 5 SNARK: {len(by_name)} kernel names, {count} device "
-        f"events read in {time.perf_counter() - t0:.1f} s")
+    wall, busy, count, kern = profile_call(
+        lambda: prover.prove(setup, wit.assignment))
+    log(f"phase 5 SNARK: {len(kern)} kernel names, {count} device events; "
+        f"the profiled proof and its reading {time.perf_counter() - t0:.1f}"
+        " s")
     if not busy:
         log("phase 5 SNARK: Groth16 proof device split not measured (the "
             "profiler recorded no device events)")
@@ -966,6 +996,398 @@ def snark_phase5(dev, res, ntts):
         + f"; other kernels {other[0] / 1e3:.2f} ms in {other[1]}; the most "
         "time: " + "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
                              for us, cnt, key in kern[:6]))
+
+
+# the multi-device slice (phase 4 "parallel"): a mesh of 4 positions, one
+# a card when the machine has 4, else the first card four times
+MESH_POSITIONS = 4
+DIST_DEGREES = ((8192, "Q_40_1"), (16384, "Q_60_1"))
+MXU_N, MXU_BATCH = 1024, 256
+
+
+def parallel_phase6(dev, seed, zero_counts, counts, tfhe, ballot_p,
+                    msm_run):
+    """The multi-device slice's phase, run after phase 5 so that the
+    earlier paths' timings keep their place in the time limit.  Each item
+    runs under device-only tracing (busy) and then alone with the launch
+    counts set to 0 just before and read just after it (wall, launches,
+    idle share, bytes between positions): the sharded PBS at
+    TFHE_BOOT_128_K4 (batch 4096, 1024 a position) through pallas_fused,
+    pallas and mxu_fused; the sharded tally (4096 ballots encrypted 1024 a
+    position, reduced, joined by psum_mod); DistPolyRing at N=8192 and
+    16384, EncryptionEngine over it, CKKS_128_ML over five distributed
+    primes; msm_bn254_4096 sharded; MxuNTT; scaling_report; bench_suite;
+    then profiling.trace.  Returns the items' log records."""
+    import numpy as np
+    import torch
+    from node_fhe_accelerate_tpu_torch.core.ckks import CkksEngine
+    from node_fhe_accelerate_tpu_torch.core.encrypt import EncryptionEngine
+    from node_fhe_accelerate_tpu_torch.core.keys import KeyManager
+    from node_fhe_accelerate_tpu_torch.core.params import (
+        CKKS_128_ML, FHEScheme, ParameterSet, Primes)
+    from node_fhe_accelerate_tpu_torch.core.poly import PolyRing
+    from node_fhe_accelerate_tpu_torch.ops.ntt_mxu import P_MXU, MxuNTT
+    from node_fhe_accelerate_tpu_torch.ops.u64 import u64_to_np
+    from node_fhe_accelerate_tpu_torch.parallel import collectives
+    from node_fhe_accelerate_tpu_torch.parallel.dist_ring import DistPolyRing
+    from node_fhe_accelerate_tpu_torch.parallel.mesh import (
+        gather, make_mesh, replicate, to_device)
+    from node_fhe_accelerate_tpu_torch.parallel.msm import sharded_msm
+    from node_fhe_accelerate_tpu_torch.parallel.pbs import (
+        replicate_bsk, shard_lwe_batch, sharded_bootstrap_fn)
+    from node_fhe_accelerate_tpu_torch.utils import (bench_suite,
+                                                     profiling,
+                                                     scaling_report)
+
+    traffic = collectives.traffic
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    cards = torch.cuda.device_count()
+    positions = scaling_report.default_devices(MESH_POSITIONS)
+    mesh = make_mesh(MESH_POSITIONS, data=MESH_POSITIONS, devices=positions)
+    where = ("4 cards" if cards >= MESH_POSITIONS else
+             f"one card four times ({positions[0]})")
+    log(f"phase 6 parallel: mesh of {MESH_POSITIONS} positions on {where}: "
+        f"{[str(d) for d in mesh.axis_devices()]}")
+    items = {}
+    distinct = mesh.distinct_devices()
+
+    def item(label, fn, **need):
+        """Run ``fn`` twice, with the counts set to 0 just before each:
+        once under device-only tracing (the device's busy time), then
+        alone between synchronizes of every mesh device (the wall, the
+        launches, the bytes moved between positions and the result it
+        returns).  Every kernel in ``need`` must have launched in the
+        second run (the value: an exact count, or None for at least once),
+        and every other kernel never.  The profiler slows the host, so the
+        idle share divides the traced run's busy time by the untraced
+        run's wall."""
+        zero_counts()
+        _, traced_wall, kern = device_trace(fn, distinct)
+        busy, events = sum(k[0] for k in kern), sum(k[1] for k in kern)
+        zero_counts()
+        traffic.reset()
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        res = fn()
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        got = counts()
+        for k, v in got.items():
+            want = need.get(k, 0)
+            if (want is None and v == 0) or (want is not None and v != want):
+                raise AssertionError(
+                    f"phase 6 parallel {label}: launches {nonzero(got)}, "
+                    f"expected {need}")
+        idle = 100 * (1 - busy / (wall * 1e6))
+        items[label] = (wall, nonzero(got), idle, traffic.bytes,
+                        traffic.values)
+        log(f"phase 6 parallel {label}: wall {wall:.4f} s ({traced_wall:.4f}"
+            f" s under device-only tracing), launches {nonzero(got)}, "
+            f"{events} device events, busy {busy / 1e6:.4f} s, idle share "
+            f"{idle:.1f}% of the untraced wall; {traffic.bytes} bytes in "
+            f"{traffic.values} values moved between positions")
+        return res
+
+    # -- 1. the sharded PBS at TFHE_BOOT_128_K4, batch 4096 ---------------
+    key, lwe_sk, ct0, tp, msgs, engines = tfhe
+    rep = replicate_bsk(key, mesh)
+    if len(rep.copies) != len(mesh.distinct_devices()):
+        raise AssertionError("phase 6 parallel: the key is not held once "
+                             "per distinct device")
+    if cards < MESH_POSITIONS and not all(
+            a is b for a, b in ((rep.on(positions[0]).ggsw_i8, key.ggsw_i8),
+                                (rep.on(positions[0]).ggsw_kslabs,
+                                 key.ggsw_kslabs))):
+        raise AssertionError("phase 6 parallel: the key was copied on its "
+                             "own card")
+    ct_sh = shard_lwe_batch(ct0, mesh)
+    n_lwe = key.params.n_lwe
+    for backend, kname, per in (("pallas_fused", "ladder_tiles", 1),
+                                ("pallas", "cmux_step", n_lwe),
+                                ("mxu_fused", "ladder_steps", 1)):
+        e = engines[backend]
+        f = sharded_bootstrap_fn(e, mesh)
+        out = item(f"sharded PBS {backend}", lambda: f(ct_sh, rep, tp),
+                   **{kname: per * MESH_POSITIONS})
+        moved = items[f"sharded PBS {backend}"][3]
+        whole = gather(out, positions[0])
+        ref = e.bootstrap_with_test_poly(ct0, key, tp)
+        if not same_lwe(whole, ref):
+            raise AssertionError(f"phase 6 parallel: sharded {backend} != "
+                                 "the unsharded bootstrap")
+        if not torch.equal(e.lwe_decrypt(whole, lwe_sk),
+                           msgs.to(torch.int32)):
+            raise AssertionError(f"phase 6 parallel: sharded {backend} "
+                                 "decodes wrong")
+        if moved:
+            raise AssertionError(f"phase 6 parallel: sharded {backend} "
+                                 f"moved {moved} bytes between positions")
+    log(f"phase 6 parallel: sharded PBS at K4, batch {ct0.b.shape[0]} "
+        f"({ct0.b.shape[0] // MESH_POSITIONS} a position): pallas_fused, "
+        "pallas, mxu_fused each bit-equal to the unsharded bootstrap, "
+        f"decoded; the key held {len(rep.copies)} time(s) "
+        f"({len(mesh.distinct_devices())} distinct device(s)); 0 bytes "
+        "between positions")
+
+    # -- 2. the sharded tally at the ballot shape -------------------------
+    e0 = EncryptionEngine(ballot_p, device=positions[0])
+    km = KeyManager(ballot_p, e0.ring)
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    sk = km.generate_secret_key(g)
+    pk = km.generate_public_key(g, sk)
+    pk_r = replicate(pk, mesh)
+    engs = {str(d): EncryptionEngine(ballot_p, device=d)
+            for d in mesh.distinct_devices()}
+    choices = np.random.default_rng(13).integers(0, CANDIDATES, BALLOTS)
+    onehots = np.eye(CANDIDATES, dtype=np.uint64)[choices]
+    per = BALLOTS // MESH_POSITIONS
+
+    def sharded_tally():
+        cts, parts = [], []
+        for i, d in enumerate(positions):
+            e = engs[str(d)]
+            gi = torch.Generator(device=d).manual_seed(seed + 100 + i)
+            mine = [e.encrypt(gi, onehots[j], pk_r.on(d))
+                    for j in range(i * per, (i + 1) * per)]
+            cts.extend(mine)
+            parts.append(e.batch_add(mine))
+        c0 = collectives.psum_mod(e0.ring.ctx, [p.c0 for p in parts])
+        c1 = collectives.psum_mod(e0.ring.ctx, [p.c1 for p in parts])
+        return cts, c0, c1
+
+    cts, c0, c1 = item("sharded tally", sharded_tally,
+                       ntt_negacyclic_mul=BALLOTS)
+    for k in range(1, MESH_POSITIONS):
+        for x, y in ((c0[k], c0[0]), (c1[k], c1[0])):
+            if not np.array_equal(u64_to_np(x), u64_to_np(y)):
+                raise AssertionError("phase 6 parallel: psum_mod left the "
+                                     "positions with different sums")
+    whole = e0.batch_add([to_device(c, positions[0]) for c in cts])
+    for f_, got in (("c0", c0[0]), ("c1", c1[0])):
+        if not np.array_equal(u64_to_np(got),
+                              u64_to_np(getattr(whole, f_))):
+            raise AssertionError(f"phase 6 parallel: the sharded tally's "
+                                 f"{f_} != the unsharded batch_add")
+    dec = e0.decode(e0.phase(dataclasses.replace(whole, c0=c0[0],
+                                                 c1=c1[0]), sk), CANDIDATES)
+    want_counts = np.bincount(choices, minlength=CANDIDATES) % e0.t
+    if not np.array_equal(dec, want_counts):
+        raise AssertionError(f"phase 6 parallel: sharded tally decodes to "
+                             f"{dec.tolist()}, not {want_counts.tolist()}")
+    log(f"phase 6 parallel: sharded tally of {BALLOTS} one-hot ballots "
+        f"({per} a position, one K8 each) joined by psum_mod == the "
+        f"unsharded batch_add (bit-exact), decoded to {dec.tolist()}")
+
+    # -- 3. the distributed ring ------------------------------------------
+    for n_d, qname in DIST_DEGREES:
+        q = getattr(Primes, qname)
+        t0 = time.perf_counter()
+        dring = DistPolyRing(n_d, q, mesh=mesh)
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(n_d)
+        a = rng.integers(0, q, (2, n_d), dtype=np.uint64)
+        b = rng.integers(0, q, (2, n_d), dtype=np.uint64)
+        da, db = dring.from_np(a), dring.from_np(b)
+        prod = item(f"DistPolyRing multiply N={n_d}",
+                    lambda: dring.multiply(da, db))
+        single = PolyRing(n_d, q, dev)
+        want = single.multiply(single.from_np(a), single.from_np(b))
+        if not np.array_equal(u64_to_np(prod), u64_to_np(want)):
+            raise AssertionError(f"phase 6 parallel: DistPolyRing N={n_d} "
+                                 "!= PolyRing.multiply")
+        log(f"phase 6 parallel: DistPolyRing N={n_d} over {qname} (n1="
+            f"{dring.n1}; tables {init_s:.2f} s): multiply of 2 rows == "
+            "PolyRing.multiply on the card (bit-exact)")
+        if n_d == 8192:
+            ring8 = dring
+    bfv_p = ParameterSet(
+        scheme=FHEScheme.BFV, poly_degree=8192, moduli=[Primes.Q_40_1],
+        lwe_dimension=64, lwe_noise_std=3.2e-11, glwe_dimension=1,
+        decomp_base_log=8, decomp_level=5, plaintext_modulus=64)
+
+    def dist_bfv():
+        eng = EncryptionEngine(bfv_p, ring=ring8)
+        kmd = KeyManager(bfv_p, ring8)
+        gd = torch.Generator(device=dev).manual_seed(seed + 17)
+        skd = kmd.generate_secret_key(gd)
+        pkd = kmd.generate_public_key(gd, skd)
+        total = eng.batch_add([eng.encrypt(gd, [1, i], pkd)
+                               for i in range(3)])
+        return eng.decrypt(total, skd, 2)
+
+    vals, budget = item("EncryptionEngine over DistPolyRing N=8192",
+                        dist_bfv)
+    if vals.tolist() != [3, 3] or not budget > 5:
+        raise AssertionError(f"phase 6 parallel: BFV over DistPolyRing "
+                             f"decrypts {vals.tolist()} (budget {budget})")
+    log("phase 6 parallel: EncryptionEngine over DistPolyRing N=8192: "
+        f"keys, 3 encryptions, tally, decrypt -> {vals.tolist()} (noise "
+        f"budget {budget:.1f} bits)")
+    ckks_p = CKKS_128_ML()
+    t0 = time.perf_counter()
+    dist = CkksEngine(ckks_p, ring_factory=lambda n_, q_: DistPolyRing(
+        n_, q_, mesh=mesh))
+    gc = torch.Generator(device=dev).manual_seed(seed + 19)
+    csk = dist.generate_secret_key(gc)
+    cpk = dist.generate_public_key(gc, csk)
+    rlk = dist.generate_relin_keys(gc, csk)
+    slots = 64
+    rng = np.random.default_rng(5)
+    va, vb = np.zeros(ckks_p.poly_degree // 2), \
+        np.zeros(ckks_p.poly_degree // 2)
+    va[:slots], vb[:slots] = rng.uniform(-1, 1, slots), \
+        rng.uniform(-1, 1, slots)
+    ca, cb = dist.encrypt(gc, va, cpk), dist.encrypt(gc, vb, cpk)
+    torch.cuda.synchronize()
+    ckks_keys_s = time.perf_counter() - t0
+    out = item("CKKS_128_ML multiply_relin_rescale over DistPolyRing",
+               lambda: dist.multiply_relin_rescale(ca, cb, rlk))
+    got = dist.decrypt(out, csk)
+    ckks_err = float(np.max(np.abs(np.real(got[:slots]) - va[:slots]
+                                   * vb[:slots])))
+    ref = CkksEngine(ckks_p, device=dev).multiply_relin_rescale(ca, cb, rlk)
+    for x, y in zip(out.c0, ref.c0):
+        if not np.array_equal(u64_to_np(x), u64_to_np(y)):
+            raise AssertionError("phase 6 parallel: CKKS c0 over "
+                                 "DistPolyRing != the single-ring engine")
+    if not ckks_err < 1e-3:
+        raise AssertionError(f"phase 6 parallel: CKKS over DistPolyRing "
+                             f"error {ckks_err}")
+    log(f"phase 6 parallel: CKKS_128_ML over 5 distributed primes: keys "
+        f"and 2 encryptions {ckks_keys_s:.2f} s; one multiply_relin_rescale "
+        f"(three steps) c0 == the single-ring engine's (bit-exact), error "
+        f"{ckks_err:.3e} on {slots} slots")
+    del dist, rlk, ca, cb, out, ref
+
+    # -- 4. msm_bn254_4096 sharded ----------------------------------------
+    curve, scal, pts = msm_run
+    # each position's Pippenger at n=1024, then log2(4) halving adds of
+    # the partials at widths 2 and 1 (the point kernel)
+    k9, _, jadd, jdbl = PIPPENGER_LAUNCHES[MSM_N // MESH_POSITIONS]
+    res, moved = item("sharded msm_bn254_4096", lambda: sharded_msm(
+        curve, scal, pts, mesh, _want_ici_bytes=True),
+        digits_mul_t=MESH_POSITIONS * k9,
+        digits_jadd=MESH_POSITIONS * jadd + 2,
+        digits_jdbl=MESH_POSITIONS * jdbl)
+    partials = items["sharded msm_bn254_4096"][4]
+    host = curve.msm(scal, pts, backend="host")
+    if not bool(curve.eq(res, host)):
+        raise AssertionError("phase 6 parallel: sharded msm_bn254_4096 != "
+                             "the host Pippenger")
+    if partials != MESH_POSITIONS - 1:
+        raise AssertionError(f"phase 6 parallel: the MSM combine moved "
+                             f"{partials} partial points")
+    log(f"phase 6 parallel: sharded msm_bn254_4096 (1024 points a "
+        f"position) == the host Pippenger by Curve.eq; the combine moved "
+        f"{partials} partial points, {moved} bytes between positions")
+
+    # -- 5. MxuNTT ---------------------------------------------------------
+    mx = MxuNTT(MXU_N, n1=32)
+    raw = np.random.default_rng(23).integers(0, 1 << 56,
+                                             (MXU_BATCH, MXU_N),
+                                             dtype=np.uint64)
+    vals_m = np.vectorize(lambda v: int(v) % P_MXU, otypes=[object])(raw)
+    digits = mx.to_digits_host(vals_m)
+    digits_d = digits.to(dev)
+    got_m = item(f"MxuNTT N={MXU_N} batch {MXU_BATCH}",
+                 lambda: mx.forward_negacyclic(digits_d))
+    want_m = MxuNTT(MXU_N, n1=32).forward_negacyclic(digits)
+    if not torch.equal(got_m.cpu(), want_m):
+        raise AssertionError("phase 6 parallel: MxuNTT on the card != the "
+                             "port on the CPU")
+    ints = mx.digits_to_ints(got_m)
+    ks = list(range(0, MXU_N, 111))
+    for row in (0, MXU_BATCH - 1):
+        at = [int(x) * pow(mx.psi, j, P_MXU) % P_MXU
+              for j, x in enumerate(vals_m[row])]
+        for k in ks:
+            kk = k % mx.n1 + mx.n1 * (k // mx.n1)
+            want_k = sum(v * pow(mx.omega, kk * j, P_MXU)
+                         for j, v in enumerate(at)) % P_MXU
+            if int(ints[row, k]) % P_MXU != want_k:
+                raise AssertionError(f"phase 6 parallel: MxuNTT row {row} "
+                                     f"output {k} != the oracle")
+    log(f"phase 6 parallel: MxuNTT N={MXU_N} batch {MXU_BATCH} (float32 "
+        "matmuls) on the card == the port on the CPU (bit-exact); rows 0 "
+        f"and {MXU_BATCH - 1} == the big-integer oracle at {len(ks)} "
+        "outputs")
+
+    # -- 6. scaling_report -------------------------------------------------
+    def scaling():
+        text = scaling_report.run(
+            per_device_batch=1024, params=key.params,
+            backend="pallas_fused", devices=positions, positions=(1, 2, 4),
+            seed=seed + 29)
+        return text, scaling_report.collective_rows(devices=positions)
+
+    text, crow = item("scaling_report", scaling,
+                      ladder_tiles=4 * (1 + 2 + 4), digits_jadd=None,
+                      digits_jdbl=None)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "scaling.csv"), "w") as fh:
+        fh.write(text + scaling_report.rows_csv(crow))
+    rows = list(csv.DictReader(io.StringIO(text)))
+    if not all(r["correct"] == "True" and r["ici_bytes_per_step"] == "0"
+               for r in rows) or not all(r[7] for r in crow):
+        raise AssertionError(f"phase 6 parallel: scaling report {rows} "
+                             f"{crow}")
+    log("phase 6 parallel: scaling_report (pallas_fused, 1024 a position): "
+        + "; ".join(f"{r['devices']} position(s) "
+                    f"{float(r['bootstraps_per_s']):,.1f} bootstraps/s, "
+                    f"efficiency {r['weak_scaling_efficiency']}, first call "
+                    f"{r['compile_s']} s" for r in rows)
+        + "; " + "; ".join(f"{r[9].split(' (')[0]}: {r[6]} bytes between "
+                           f"positions, first call {r[2]:.3f} s"
+                           for r in crow)
+        + f"; written to {os.path.relpath(out_dir, ROOT)}/scaling.csv")
+
+    # -- 7. bench_suite ------------------------------------------------------
+    def suites():
+        runner = bench_suite.ComprehensiveBenchmarkRunner(
+            warmup=1, iters=2, device=dev,
+            keycache_dir=os.path.join(out_dir, "keycache"))
+        runner.benchmark_memory()
+        runner.benchmark_modmul()
+        runner.benchmark_ntt()
+        runner.benchmark_poly_mul()
+        runner.benchmark_bootstrap(presets=("l2_k4",))
+        return runner
+
+    runner = item("bench_suite", suites, ntt_forward=None, ntt_inverse=None,
+                  ntt_negacyclic_mul=None, cmux_step=None)
+    runner.export_all(os.path.join(out_dir, "bench_suite"))
+    bad = [r.name for r in runner.results if not r.correct]
+    if bad or len(runner.results) != 12:
+        raise AssertionError(f"phase 6 parallel: bench_suite rows "
+                             f"{[(r.name, r.correct) for r in runner.results]}")
+    log("phase 6 parallel: bench_suite (warmup 1, iters 2), every row "
+        "correct: " + "; ".join(
+            f"{r.name} {r.backend} {r.throughput_ops_s:,.1f} {r.unit}"
+            for r in runner.results)
+        + f"; written to {os.path.relpath(out_dir, ROOT)}/bench_suite")
+
+    # -- 8. profiling.trace around one sharded bootstrap --------------------
+    f = sharded_bootstrap_fn(engines["pallas_fused"], mesh)
+    zero_counts()
+    with profiling.trace(os.path.join(out_dir, "trace")) as tf:
+        profiling.block_until_ready(f(ct_sh, rep, tp))
+    got = counts()
+    if nonzero(got) != {"ladder_tiles": MESH_POSITIONS}:
+        raise AssertionError(f"phase 6 parallel: traced bootstrap "
+                             f"launches {nonzero(got)}")
+    with open(tf.path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if len(kern) < MESH_POSITIONS:
+        raise AssertionError(f"phase 6 parallel: the trace holds "
+                             f"{len(kern)} kernel events")
+    log(f"phase 6 parallel: profiling.trace around one sharded bootstrap: "
+        f"{os.path.relpath(tf.path, ROOT)}, {len(events)} events, "
+        f"{len(kern)} CUDA kernel events ("
+        + ", ".join(sorted({k[:40] for k in kern})[:4]) + ")")
+    return items
 
 
 def main() -> int:
@@ -2641,18 +3063,8 @@ def main() -> int:
         f" the rest {rest_ms:.3f} ms ({100 * rest_ms / total_ms:.1f}%); "
         f"within it: lift {bfv_split['lift to the auxiliary primes']:.3f} "
         f"ms, relinearize {bfv_split['relinearize']:.3f} ms; {smi}")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        es.multiply_relin_rescale(c_a, c_b, rlks)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    kern = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(k[0] for k in kern)
+    prof_s, busy, _, kern = profile_call(
+        lambda: es.multiply_relin_rescale(c_a, c_b, rlks))
     if busy:
         # cummax runs as torch's scan-with-indices kernel
         groups = {"NTT (K6/K7)": ("ntt_",),
@@ -2661,15 +3073,16 @@ def main() -> int:
                            if any(m in k[2].lower() for m in ms))
                     for g, ms in groups.items()}
         log(f"phase 5: BFV_128_SIMD multiply_relin_rescale under the "
-            f"profiler, one call of {prof_s * 1e3:.2f} ms: device busy "
-            f"{busy / 1e3:.3f} ms, idle share "
-            f"{100 * (1 - busy / (prof_s * 1e6)):.1f}%; " + "; ".join(
+            f"profiler, one call of {prof_s * 1e3:.2f} ms ({total_ms:.2f} "
+            f"ms without it): device busy {busy / 1e3:.3f} ms, idle share "
+            f"{100 * (1 - busy / (total_ms * 1e3)):.1f}% of the call "
+            f"without the profiler ({100 * (1 - busy / (prof_s * 1e6)):.1f}"
+            "% under it); " + "; ".join(
                 f"{g} {us / 1e3:.3f} ms ({100 * us / busy:.1f}% of busy)"
                 for g, us in split_us.items())
             + f"; {sum(k[1] for k in kern)} device launches; the most "
-            "time: " + "; ".join(
-                f"{key[:60]} x{cnt} {us / 1e3:.3f} ms"
-                for us, cnt, key in sorted(kern)[::-1][:6]))
+            "time: " + "; ".join(f"{key[:60]} x{cnt} {us / 1e3:.3f} ms"
+                                 for us, cnt, key in kern[:6]))
     else:
         log("phase 5: BFV multiply device split not measured (the profiler "
             "recorded no device events)")
@@ -2810,21 +3223,11 @@ def main() -> int:
     # ... and, within one profiled call alone, the device time of K9
     # (mont_mul_kernel<L, true>), K10's single product (<L, false>) and
     # point kernel (point_kernel<L, add>) and every other kernel, and the
-    # device's idle share of that call's wall time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        curve.msm(scal, pts)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    kernels = [(getattr(e, "self_device_time_total", 0), e.count, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(k[0] for k in kernels)
+    # device's idle share of the call's wall without the profiler
+    prof_s, busy_us, count, kernels = profile_call(
+        lambda: curve.msm(scal, pts))
     if busy_us:
-        prof_us = prof_s * 1e6
+        plain_us = min(walls) * 1e6
         mont = {}
         for label, name_in, tag in (
                 ("K9", "mont_mul_kernel", "true>"),
@@ -2835,23 +3238,36 @@ def main() -> int:
             mont[label] = (sum(k[0] for k in mine), sum(k[1] for k in mine))
         other_us = busy_us - sum(v[0] for v in mont.values())
         log(f"phase 5: msm_bn254_4096 under the profiler, one call of "
-            f"{prof_s:.4f} s: device busy {busy_us / 1e6:.4f} s, idle share "
-            f"{100 * (1 - busy_us / prof_us):.1f}%; " + "; ".join(
+            f"{prof_s:.4f} s ({min(walls):.4f} s without it): device busy "
+            f"{busy_us / 1e6:.4f} s, idle share "
+            f"{100 * (1 - busy_us / plain_us):.1f}% of the call without the "
+            f"profiler ({100 * (1 - busy_us / (prof_s * 1e6)):.1f}% under "
+            "it); " + "; ".join(
                 f"{label} {us / 1e3:.3f} ms device in {cnt} launches "
                 f"({us / max(cnt, 1):.2f} us each, "
-                f"{100 * us / prof_us:.2f}% of the call)"
+                f"{100 * us / plain_us:.2f}% of the call)"
                 for label, (us, cnt) in mont.items())
             + f"; other device kernels {other_us / 1e3:.2f} ms "
-            f"({100 * other_us / prof_us:.1f}%) in "
-            f"{sum(k[1] for k in kernels) - sum(v[1] for v in mont.values())}"
+            f"({100 * other_us / plain_us:.1f}%) in "
+            f"{count - sum(v[1] for v in mont.values())}"
             " launches; the most time: " + "; ".join(
                 f"{key[:60]} x{cnt} {us / 1e3:.2f} ms"
-                for us, cnt, key in sorted(kernels)[::-1][:6]))
+                for us, cnt, key in kernels[:6]))
     else:
         log("phase 5: msm_bn254_4096 device split and idle share not "
             "measured (the profiler recorded no device events)")
 
     snark_phase5(dev, snark, snark_ntts)
+
+    # the multi-device slice on a mesh of 4 positions, after the timings;
+    # its items' launch counts are logged per item, and the JSON record
+    # keeps the counts of the paths its timing rows describe
+    parallel_phase6(
+        dev, args.seed, zero_counts, counts,
+        (key, lwe_sk, ct0, tp, msgs, {"pallas_fused": eng_tiles,
+                                      "pallas": eng,
+                                      "mxu_fused": eng_steps}),
+        ballot_p, msm_runs["bn254"][:3])
 
     src = "node_fhe_accelerate_tpu_torch/csrc/"
     ref = "node_fhe_accelerate_tpu/ops/pallas_cmux.py:"

@@ -18,8 +18,9 @@ in the NTT domain, two inverse transforms per prime), bit-identical to
 multiply -> relinearize -> rescale; on the card it is the default, and its
 launches are stacked per prime (four operands in one forward, the level's
 gadget components in one forward, the two sums in one inverse).  The relin
-key's NTT form is cached on the key per chain (degree, moduli, device), so
-one key used under engines with different chains gets each its own form.
+key's NTT form is cached on the key per chain (degree, moduli, device and
+the rings' transform layout), so one key used under engines with different
+chains or rings gets each its own form.
 """
 from __future__ import annotations
 
@@ -96,13 +97,24 @@ class CkksEngine:
     """Leveled CKKS over params.moduli (every prime of the chain)."""
 
     def __init__(self, params: ParameterSet, scale: int | None = None,
-                 device=None):
+                 device=None, ring_factory=None):
+        """``ring_factory(degree, q)`` makes the ring of each prime (default
+        a ``PolyRing`` on ``device``): pass a DistPolyRing factory to run
+        leveled CKKS over the 4-step sharded ring (parallel/dist_ring.py).
+        The levels share one ring a prime."""
         self.params = params
         self.K = len(params.moduli)
-        self.device = resolve_device(device)
-        # one PolyRing per prime, shared by the levels
-        per_prime = [PolyRing(params.poly_degree, q, self.device)
-                     for q in params.moduli]
+        # one ring per prime, shared by the levels
+        if ring_factory is None:
+            self.device = resolve_device(device)
+            per_prime = [PolyRing(params.poly_degree, q, self.device)
+                         for q in params.moduli]
+        else:
+            per_prime = [ring_factory(params.poly_degree, q)
+                         for q in params.moduli]
+            self.device = resolve_device(
+                per_prime[0].device if device is None else device)
+        self._ring_factory = ring_factory
         # ring per level: level L computes over moduli[:L]
         self.rings = [RnsPolyRing(params.poly_degree, params.moduli[:L],
                                   self.device, rings=per_prime[:L])
@@ -296,9 +308,13 @@ class CkksEngine:
     def _relin_key_ntt(self, rlk: RnsRelinKey, L: int):
         """The NTT form (ka, kb) of the level-L relin key (residue tuples a
         gadget component), computed once per chain and cached on the key
-        under (N, moduli, device): one forward launch a prime."""
+        under (N, moduli, device, the rings' transform layout): one forward
+        launch a prime."""
         ring = self.rings[L - 1]
-        tag = (ring.n, tuple(ring.moduli), str(self.device))
+        # the layout of the transform domain is part of the key: a
+        # DistPolyRing's NTT form is not a PolyRing's
+        tag = (ring.n, tuple(ring.moduli), str(self.device),
+               tuple(getattr(r, "ntt_layout", None) for r in ring.rings))
         if tag not in rlk.ntt_forms:
             f = ring.to_ntt(stack(list(rlk.a) + list(rlk.b)))
             rlk.ntt_forms[tag] = ([row(f, j) for j in range(L)],
@@ -326,9 +342,10 @@ class CkksEngine:
     def multiply_relin_rescale(self, a, b, relin_keys: list,
                                fused: bool | None = None) -> CkksCiphertext:
         """Leveled multiply.  ``fused=None`` takes the fused form on the
-        card, the eager three steps elsewhere."""
+        card with the default rings, the eager three steps elsewhere and
+        over a ``ring_factory``'s rings (as the JAX package does)."""
         if fused is None:
-            fused = self.device.type == "cuda"
+            fused = self.device.type == "cuda" and self._ring_factory is None
         if not fused:
             return self.rescale(self.relinearize(self.multiply(a, b),
                                                  relin_keys))

@@ -67,9 +67,15 @@ class RnsPolyRing:
     A polynomial is a tuple of K limb-plane pairs; batch axes lead as in
     PolyRing."""
 
-    def __init__(self, degree: int, moduli: list, device=None, rings=None):
-        """``rings`` are the PolyRings of the primes, when another chain
-        shares them (default: a new ``PolyRing`` per prime on ``device``)."""
+    def __init__(self, degree: int, moduli: list, device=None, rings=None,
+                 ring_factory=None):
+        """``rings`` are the per-prime rings, when another chain shares
+        them; else ``ring_factory(degree, q)`` makes one a prime (default: a
+        ``PolyRing`` on ``device``).  Pass e.g. ``lambda n, q:
+        DistPolyRing(n, q, mesh=mesh)`` to run the RNS stack, and CKKS on
+        top of it, over the 4-step sharded ring (parallel/dist_ring.py):
+        the coefficient planes are the same in both.  Without ``device``
+        the ring lives on its per-prime rings' device."""
         self.n = degree
         self.moduli = list(moduli)
         self.K = len(self.moduli)
@@ -77,6 +83,10 @@ class RnsPolyRing:
         # ``q`` aliases the composite, so modulus-generic callers (Shamir
         # sharing, Lagrange weights) work over Z_Q unchanged
         self.q = self.Q
+        if rings is None and ring_factory is not None:
+            rings = [ring_factory(degree, q) for q in self.moduli]
+        if rings is not None and device is None:
+            device = rings[0].device
         self.device = resolve_device(device)
         self.rings = (list(rings) if rings is not None else
                       [PolyRing(degree, q, self.device) for q in self.moduli])

@@ -935,3 +935,68 @@ def test_fr_ntt_on_card_matches_cpu(cuda_device):
     assert torch.equal(fg.inverse(fwd).cpu(), ac)
     assert torch.equal(fg.negacyclic_mul(a, b).cpu(),
                        fc.negacyclic_mul(ac, bc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 8192])
+def test_dist_ring_on_card_matches_cpu(cuda_device, n):
+    """DistPolyRing.multiply and to_ntt over 4 positions on one card equal
+    the same ring over 4 CPU positions and PolyRing.multiply (K8 on the
+    card)."""
+    from node_fhe_accelerate_tpu_torch.core.poly import PolyRing
+    from node_fhe_accelerate_tpu_torch.parallel.dist_ring import DistPolyRing
+    from node_fhe_accelerate_tpu_torch.parallel.mesh import make_mesh
+    q = (1 << 40) - (1 << 32) + 1
+    card = DistPolyRing(n, q, mesh=make_mesh(4, data=4,
+                                             devices=[cuda_device] * 4))
+    cpu = DistPolyRing(n, q, mesh=make_mesh(4, data=4, devices=["cpu"] * 4))
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, q, (2, n), dtype=np.uint64)
+    b = rng.integers(0, q, (2, n), dtype=np.uint64)
+    got = card.multiply(card.from_np(a), card.from_np(b))
+    assert got[0].device.type == "cuda"
+    want = cpu.multiply(cpu.from_np(a), cpu.from_np(b))
+    assert np.array_equal(u64_to_np(got), u64_to_np(want))
+    single = PolyRing(n, q, cuda_device)
+    assert np.array_equal(u64_to_np(got), u64_to_np(single.multiply(
+        single.from_np(a), single.from_np(b))))
+    assert np.array_equal(u64_to_np(card.to_ntt(card.from_np(a))),
+                          u64_to_np(cpu.to_ntt(cpu.from_np(a))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_sharded_pbs_on_card_matches_cpu(cuda_device, backend):
+    """The sharded bootstrap over 4 positions on one card (the per-step
+    kernel or the fused ladder) equals the unsharded one on the card and
+    the plain "mxu" bootstrap on the CPU on the same key; the key is held
+    once on the card."""
+    from node_fhe_accelerate_tpu_torch.parallel.mesh import (gather,
+                                                             make_mesh)
+    from node_fhe_accelerate_tpu_torch.parallel.pbs import (
+        replicate_bsk, sharded_bootstrap_fn)
+    p = dataclasses.replace(SMALL, n_lwe=16, lwe_noise_std=0.0,
+                            glwe_noise_std=0.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    eng = TfheEngine(p, ext_backend=backend, device=cuda_device)
+    lwe_sk = eng.lwe_keygen(gen)
+    bsk = eng.generate_bootstrap_key(gen, lwe_sk, eng.glwe_keygen(gen))
+    msgs = torch.arange(64, device=cuda_device) % 2
+    ct = eng.lwe_encrypt(gen, msgs, lwe_sk)
+    tp = eng.default_test_poly()
+    mesh = make_mesh(4, data=4, devices=[cuda_device] * 4)
+    rep = replicate_bsk(bsk, mesh)
+    assert list(rep.copies) == ["cuda:0"]
+    out = gather(sharded_bootstrap_fn(eng, mesh)(ct, rep, tp))
+    ref = eng.bootstrap_with_test_poly(ct, bsk, tp)
+    assert torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)
+    from node_fhe_accelerate_tpu_torch.core.bootstrap import LweCiphertext
+    cpu = TfheEngine(p, ext_backend="mxu", device="cpu")
+    bsk_c = dataclasses.replace(bsk, ksk_a=bsk.ksk_a.cpu(),
+                                ksk_b=bsk.ksk_b.cpu(),
+                                ggsw_i8=bsk.ggsw_i8.cpu())
+    want = cpu.bootstrap_with_test_poly(
+        LweCiphertext(a=ct.a.cpu(), b=ct.b.cpu()), bsk_c, tp.cpu())
+    assert torch.equal(out.a.cpu(), want.a) and \
+        torch.equal(out.b.cpu(), want.b)
+    assert torch.equal(eng.lwe_decrypt(out, lwe_sk), msgs.to(torch.int32))
