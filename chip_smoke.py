@@ -41,15 +41,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and refusing the prime just above 2^62; then, at batch 4096,
    one CMux step through cmux_step and through cmux_step_slabs (v3, v2, on
    the K-major diagonal slabs of build_diag_kslabs, built once per phase)
-   on a row of the committed TFHE_BOOT_128_K4 key (.keycache) and on a
-   TFHE_BOOT_128_L2-shaped row (k=1, N=1024), and cmux_step again at a
-   ragged batch of 4000; the whole ladder through ladder_tiles and
-   ladder_steps over all 630 rows of the committed key and over a short
-   ladder at the L2 shape; ladder_tiles also on short ladders at batches of
-   1, 127 and 129 rows (one more than a 128-row tile) and at 0 and 1
-   steps; ladder_steps (on the K-major slabs of build_all_step_kslabs) also
-   on a short truncated-key ladder (drop=1) and on a short ladder at the
-   ragged batch;
+   on a row of the committed TFHE_BOOT_128_K4 key (.keycache), on a
+   TFHE_BOOT_128_L2-shaped row (k=1, N=1024), and on a TFHE_BOOT_128 row
+   (k=1, N=1024, l=3, Bg=2^7, the entry's default) at 1024 rows (the
+   benchmark's boot128_pbs_b1024 batch), and cmux_step again at a ragged
+   batch of 4000; the whole ladder through ladder_tiles and ladder_steps
+   over all 630 rows of the committed key, over a short ladder at the L2
+   shape, and over a short ladder at TFHE_BOOT_128 on 1024 rows;
+   ladder_tiles also on short ladders at batches of 1, 127 and 129 rows
+   (one more than a 128-row tile) and at 0 and 1 steps; ladder_steps (on
+   the K-major slabs of build_all_step_kslabs) also on a short
+   truncated-key ladder (drop=1) and on a short ladder at the ragged
+   batch;
 3. a full 630-step ``bootstrap_with_test_poly`` on the committed K4 key at
    batch 256, once through the per-step kernel backend and once through
    "mxu" -- bit-equal;
@@ -92,8 +95,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the selection is printed;
    then the slice's entry and the BFV stack, counts likewise: the default
    constructor ``TfheEngine(TFHE_BOOT_128_K4())`` ("auto") at batch 4096,
-   its race's ``selection_table`` (seconds per call of "pallas" and
-   "mxu", each finite, the winner a kernel backend) and one
+   its race's ``selection_table`` (seconds per call of "pallas", "mxu",
+   "pallas_fused" and "mxu_fused", each finite but "mxu_fused"'s when its
+   slabs do not fit by the engine's rule read before the race, the winner
+   a kernel backend) and one
    decode-checked bootstrap routed to the winner, bit-equal
    to the winner named explicitly and, rows 0-3, to the port on the CPU;
    the ballot shape of
@@ -118,8 +123,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the product through the serializer and back, a 3-of-5 threshold
    decryption, the depth-1 product bit-equal to the port on the CPU from
    the same generator state), and the engine's own "auto" TfheEngine
-   (n=630, N=1024, k=1): its race, then ``programmable_bootstrap`` and
-   ``bootstrap`` of 256 rows decoded; CKKS_128_ML (N=16384, five primes)
+   (n=630, N=1024, k=1): its race ("mxu_fused" running in it whenever its
+   slabs fit by the engine's rule before the race), then
+   ``programmable_bootstrap`` and ``bootstrap`` of 256 rows decoded,
+   bit-equal to the winner named explicitly and, the NOT's rows 0-1, to
+   the port on the CPU; CKKS_128_ML (N=16384, five primes)
    through
    ``CkksContext`` (8192 real slots, ``multiply`` from level 5 to 4 and 3
    and ``dot`` of three ciphertexts, each level's largest error, within
@@ -472,12 +480,33 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
-def check_race(path, sel):
-    """A band race on the card: both candidates are kernel paths, so each
+# what "auto" routes a bootstrap to on the card, and the ladder launches
+# of one call there
+PBS_KERNEL_LAUNCHES = {"pallas": ("cmux_step", 630),
+                       "pallas_fused": ("ladder_tiles", 1),
+                       "mxu_fused": ("ladder_steps", 1)}
+
+
+def check_race(path, sel, may_sit_out=()):
+    """A race on the card: every candidate but those of ``may_sit_out``
     must have run (a time that is finite)."""
-    if not all(math.isfinite(v) for v in sel["timings"].values()):
+    if not all(math.isfinite(v) for k, v in sel["timings"].items()
+               if k not in may_sit_out):
         raise AssertionError(f"phase 4: {path} race {sel}: a candidate did "
                              "not run")
+
+
+def fused_may_sit_out(need, share):
+    """(("mxu_fused",) when the engine's own memory rule (K-major slabs of
+    ``need`` bytes within ``share`` of the free memory), read now, keeps
+    it from building the slabs, else (); the line that says so): read
+    before a race, so that "mxu_fused" must run whenever its slabs fit."""
+    import torch
+    free = torch.cuda.mem_get_info()[0]
+    fits = need <= share * free
+    return (() if fits else ("mxu_fused",)), (
+        f"K-major slabs {need / 1e9:.2f} GB, {free / 1e9:.2f} GB free "
+        f"before the race: mxu_fused {'must run' if fits else 'may sit out'}")
 
 
 def same_lwe(x, y):
@@ -1404,8 +1433,9 @@ def main() -> int:
     from node_fhe_accelerate_tpu_torch.api.context import FHEContext
     from node_fhe_accelerate_tpu_torch.api.engine import create_fhe_engine
     from node_fhe_accelerate_tpu_torch.core.bootstrap import (
-        TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, LweCiphertext, TfheEngine,
-        TfheParams)
+        KSLABS_SHARE_OF_FREE, TFHE_BOOT_128, TFHE_BOOT_128_K4,
+        TFHE_BOOT_128_L2, LweCiphertext, TfheEngine, TfheParams,
+        kslabs_bytes)
     from node_fhe_accelerate_tpu_torch.core.ckks import CkksEngine
     from node_fhe_accelerate_tpu_torch.core.speculative import SpeculativePBS
     from node_fhe_accelerate_tpu_torch.core.streaming import (
@@ -1817,6 +1847,39 @@ def main() -> int:
         ladder.blind_rotate_fused_steps_reference(acc2, rots2, slabs2,
                                                   pl2.pbs_base_log)))
     del acc2, rots2, g2, slabs2, e2
+    # TFHE_BOOT_128 (k=1, N=1024, l=3, Bg=2^7), the ladder "auto" runs in
+    # the entry's bootstraps, at the batch of boot128_pbs_b1024; from a
+    # generator of its own, so that the later phases draw what they drew
+    # without these checks
+    pb = TFHE_BOOT_128()
+    rows_b = 1024
+    gen_b = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+    eb = TfheEngine(dataclasses.replace(pb, n_lwe=short),
+                    ext_backend="pallas", device=dev)
+    gb = eb.generate_bootstrap_key(gen_b, eb.lwe_keygen(gen_b),
+                                   eb.glwe_keygen(gen_b)).ggsw_i8
+    accb = random_u32(gen_b, (rows_b, pb.glwe_dim + 1, pb.poly_degree))
+    rotsb = torch.randint(-4 * pb.poly_degree, 4 * pb.poly_degree,
+                          (short, rows_b), generator=gen_b,
+                          dtype=torch.int32, device="cuda")
+    check_steps("TFHE_BOOT_128 (k=1, N=1024, l=3)", accb, rotsb[0], gb[0],
+                cmux.build_diag_kslabs(torch.cat([gb[0], gb[0]], dim=-1)),
+                pb.pbs_base_log)
+    want_b = ladder.blind_rotate_fused_reference(accb, rotsb, gb,
+                                                 pb.pbs_base_log)
+    worse("ladder_tiles", check_equal(
+        f"ladder_tiles TFHE_BOOT_128, {short} steps",
+        ladder.blind_rotate_fused(accb, rotsb, gb, pb.pbs_base_log), want_b))
+    slabsb = cmux.build_all_step_kslabs(gb)
+    want_sb = ladder.blind_rotate_fused_steps_reference(
+        accb, rotsb, slabsb, pb.pbs_base_log)
+    if not torch.equal(want_sb, want_b):
+        raise AssertionError("TFHE_BOOT_128: the two plain ladders differ")
+    worse("ladder_steps", check_equal(
+        f"ladder_steps TFHE_BOOT_128, {short} steps",
+        ladder.blind_rotate_fused_steps(accb, rotsb, slabsb,
+                                        pb.pbs_base_log), want_sb))
+    del accb, rotsb, gb, slabsb, eb, want_b, want_sb, gen_b
     # ladder_tiles at the edges of a 128-row tile and at 0 and 1 steps, on
     # the committed key
 
@@ -2286,13 +2349,16 @@ def main() -> int:
         f"{bp_secs['cuda', BP_CMP_BITS][1]:.3f} s / "
         f"{bp_secs['cpu', BP_CMP_BITS][1]:.3f} s")
 
-    # the default constructor, TfheEngine(params): "auto" races "pallas"
-    # and "mxu" on the first bootstrap of a batch shape (here, outside every
-    # timed loop), then routes every bootstrap of that shape to the winner
+    # the default constructor, TfheEngine(params): "auto" races its four
+    # candidates on the first bootstrap of a batch shape (here, outside
+    # every timed loop), then routes every bootstrap of that shape to the
+    # winner
     eng_auto = TfheEngine(pk4)
     if eng_auto.backend != "pallas" or eng_auto.dispatcher is None:
         raise AssertionError(f"phase 4: TfheEngine(params) resolved to "
                              f"{eng_auto.backend!r} without a race")
+    sit_out, fit_line = fused_may_sit_out(kslabs_bytes(key.ggsw_i8),
+                                          KSLABS_SHARE_OF_FREE)
     t0 = time.perf_counter()
     eng_auto.bootstrap_with_test_poly(ct0, key, tp)
     torch.cuda.synchronize()
@@ -2300,18 +2366,20 @@ def main() -> int:
     (sel,) = eng_auto.dispatcher.selection_table().values()
     winner = sel["winner"]
     log(f"phase 4: auto at batch {BATCH}: race and first call {race_s:.2f} "
-        f"s; selection_table: winner {winner}, seconds per call " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sel["timings"].items()))
-    # every candidate ran (a kernel that fails raises out of the race), and
-    # on the card a kernel backend wins: "mxu" is the plain contraction
-    if not all(math.isfinite(v) for v in sel["timings"].values()) \
-            or winner not in ("pallas", "pallas_fused"):
-        raise AssertionError(f"phase 4: auto race {sel}: a candidate did not "
-                             "run, or the plain \"mxu\" won")
+        f"s; {fit_line}; selection_table: winner {winner}, seconds per call "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sel["timings"].items()))
+    # every candidate ran (a kernel that fails raises out of the race; only
+    # "mxu_fused" sits out, and only when its slabs do not fit by the
+    # engine's rule), and on the card a kernel backend wins: "mxu" is the
+    # plain contraction
+    check_race("auto", sel, may_sit_out=sit_out)
+    if winner not in PBS_KERNEL_LAUNCHES:
+        raise AssertionError(f"phase 4: auto race {sel}: the plain \"mxu\" "
+                             "won")
     zero_counts()
     (out_auto,), secs = chained(eng_auto, ct0, key, tp, 1)
-    expect_counts("auto", **{"pallas": {"cmux_step": pk4.n_lwe},
-                             "pallas_fused": {"ladder_tiles": 1}}[winner])
+    kname, per = PBS_KERNEL_LAUNCHES[winner]
+    expect_counts("auto", **{kname: per})
     expect_decode("auto", out_auto)
     want_auto = TfheEngine(pk4, ext_backend=winner).bootstrap_with_test_poly(
         ct0, key, tp)
@@ -2652,35 +2720,59 @@ def main() -> int:
     lwe_sk_e, _, bsk_e = fhe_c.generate_bootstrap_key()
     m_e = torch.arange(rows_e, device=dev) % 2
     lwe_e = fhe_c.tfhe.lwe_encrypt(fhe_c.gen, m_e, lwe_sk_e)
+    sit_out_e, fit_line_e = fused_may_sit_out(kslabs_bytes(bsk_e.ggsw_i8),
+                                              KSLABS_SHARE_OF_FREE)
     t0 = time.perf_counter()
     fhe_c.bootstrap(lwe_e, bsk_e)
     torch.cuda.synchronize()
     race_e = time.perf_counter() - t0
     (sel_e,) = fhe_c.tfhe.dispatcher.selection_table().values()
-    check_race("FHEEngine bootstrap", sel_e)
-    if sel_e["winner"] not in ("pallas", "pallas_fused"):
+    check_race("FHEEngine bootstrap", sel_e, may_sit_out=sit_out_e)
+    if sel_e["winner"] not in PBS_KERNEL_LAUNCHES:
         raise AssertionError(f"phase 4: FHEEngine race {sel_e}: the plain "
                              "\"mxu\" won")
     zero_counts()
     not_e = fhe_c.programmable_bootstrap(lwe_e, bsk_e, lambda v: 1 - v)
     id_e = fhe_c.bootstrap(lwe_e, bsk_e)
-    n_e = fhe_c.tfhe.p.n_lwe
-    boot_counts = nonzero(expect_counts(
-        "FHEEngine bootstraps", **{"pallas": {"cmux_step": 2 * n_e},
-                                   "pallas_fused": {"ladder_tiles": 2}
-                                   }[sel_e["winner"]]))
+    kname, per = PBS_KERNEL_LAUNCHES[sel_e["winner"]]
+    boot_counts = nonzero(expect_counts("FHEEngine bootstraps",
+                                        **{kname: 2 * per}))
     if not (torch.equal(fhe_c.tfhe.lwe_decrypt(not_e, lwe_sk_e),
                         (1 - m_e).to(torch.int32))
             and torch.equal(fhe_c.tfhe.lwe_decrypt(id_e, lwe_sk_e),
                             m_e.to(torch.int32))):
         raise AssertionError("phase 4: FHEEngine bootstraps decode wrong")
+    # bit-equal to the winner named explicitly, and the NOT's rows 0-1 to
+    # the port on the CPU ("auto" is "mxu" there; ~37 s a bootstrap), on
+    # the same key and ciphertexts
+    p_e = fhe_c.tfhe.p
+    lut_e = fhe_c.tfhe.make_lut(lambda v: 1 - v)
+    eng_w = TfheEngine(p_e, ext_backend=sel_e["winner"], device=dev)
+    if not (same_lwe(not_e, eng_w.programmable_bootstrap(lwe_e, bsk_e,
+                                                         lut_e))
+            and same_lwe(id_e, eng_w.bootstrap(lwe_e, bsk_e))):
+        raise AssertionError(f"phase 4: FHEEngine bootstraps differ from "
+                             f"{sel_e['winner']} named explicitly")
+    bsk_ec = dataclasses.replace(
+        bsk_e, ggsw_i8=bsk_e.ggsw_i8.cpu(), ksk_a=bsk_e.ksk_a.cpu(),
+        ksk_b=bsk_e.ksk_b.cpu(), ggsw_kslabs=None)
+    rows_ec = slice(0, 2)
+    lwe_ec = LweCiphertext(a=lwe_e.a[rows_ec].cpu(), b=lwe_e.b[rows_ec].cpu())
+    eng_ec = TfheEngine(p_e, device="cpu")
+    want_ec = eng_ec.programmable_bootstrap(lwe_ec, bsk_ec, lut_e.cpu())
+    if not (torch.equal(want_ec.a, not_e.a[rows_ec].cpu())
+            and torch.equal(want_ec.b, not_e.b[rows_ec].cpu())):
+        raise AssertionError("phase 4: FHEEngine programmable_bootstrap "
+                             "(NOT) rows 0-1 != the port on the CPU")
     log(f"phase 4: FHEEngine (TfheParams(), auto) at batch {rows_e}: race "
-        f"and first call {race_e:.2f} s, winner {sel_e['winner']} "
-        "(seconds per call " + ", ".join(
+        f"and first call {race_e:.2f} s; {fit_line_e}; winner "
+        f"{sel_e['winner']} (seconds per call " + ", ".join(
             f"{k} {v:.4f}" for k, v in sel_e["timings"].items())
-        + f"); programmable_bootstrap (NOT) and bootstrap decoded; "
-        f"launches {boot_counts}")
-    del lwe_e, not_e, id_e, bsk_e
+        + f"); programmable_bootstrap (NOT) and bootstrap decoded, == "
+        f"{sel_e['winner']} named explicitly (bit-exact), the NOT's rows "
+        f"0-1 == the port on the CPU ({eng_ec.backend}, bit-exact); launches "
+        f"{boot_counts}")
+    del lwe_e, not_e, id_e, bsk_e, eng_w, bsk_ec, lwe_ec, eng_ec, want_ec
 
     # CKKS_128_ML (N=16384, five primes, scale 2^49) through CkksContext:
     # 8192 real slots a ciphertext, multiply (the fused multiply,

@@ -10,11 +10,16 @@ so keys made here are checked by decryption, not by equality.
 External-product backends, under the reference's names:
 
 * ``"auto"`` (default): on the card, when the int8 accumulation bound
-  holds, the engine races "pallas" and "mxu" (and "pallas_fused" when
-  ``NFA_ADAPTIVE_FUSED`` is set) once per batch shape through the adaptive
-  dispatcher (utils/dispatch.py) and routes ``bootstrap_with_test_poly`` to
-  the winner; a backend that raises (a kernel that fails to build or
-  launch) stops the race with its error.  "mxu" on the CPU (no race),
+  holds, the engine races "pallas", "mxu", "pallas_fused" and "mxu_fused"
+  once per batch shape through the adaptive dispatcher (utils/dispatch.py)
+  and routes ``bootstrap_with_test_poly`` to the winner; a backend that
+  raises (a kernel that fails to build or launch) stops the race with its
+  error.  "mxu_fused" runs on a key's K-major slabs: the key's own, or
+  built once per key in its first call (the race's warm-up) when they fit
+  in ``KSLABS_SHARE_OF_FREE`` of the card's free memory, else it sits the
+  race out; a later key whose slabs do not fit goes to the race's runner-up
+  while the keys that have slabs keep them; the engine drops the slabs it
+  built once "mxu_fused" wins no batch shape.  "mxu" on the CPU (no race),
   "crt" when the int8 bound fails, and "mxu" for a truncated key
   (``bsk_drop_planes``).
 * ``"pallas"`` (``"kernel"`` is a synonym): each blind-rotate step
@@ -48,12 +53,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import os
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..device import resolve_device
 from ..ops import i8 as i8ops
@@ -68,6 +73,18 @@ __all__ = [
     "TFHE_BOOT_128_K4T",
     "LweCiphertext", "GlweCiphertext", "BootstrapKey", "TfheEngine",
 ]
+
+# "auto" builds a key's K-major slabs for its "mxu_fused" candidate only
+# when they take at most this share of the card's free memory at the time
+# (8.26 GB at TFHE_BOOT_128_K4, 31.7 GB at TFHE_BOOT_128): the rest stays
+# for the batch, the outputs and the other candidates.
+KSLABS_SHARE_OF_FREE = 0.5
+
+
+def kslabs_bytes(ggsw_i8: torch.Tensor) -> int:
+    """Bytes of the K-major slabs of the key rows ``ggsw_i8``: (n,
+    (k+1)P*N, l(k+1)*N), N/2 bytes for each byte of the rows."""
+    return ggsw_i8.numel() * ggsw_i8.shape[-1] // 4
 
 
 @dataclass(frozen=True)
@@ -259,21 +276,56 @@ class TfheEngine:
         interchangeable int8 backends: ``bootstrap_with_test_poly`` (and so
         ``bootstrap``, ``programmable_bootstrap`` and the comparisons) goes
         through the dispatcher; the sub-engines share this engine's params
-        and device and take the same BootstrapKey."""
+        and device and take the same BootstrapKey.  The slabs this engine
+        builds for "mxu_fused" (``_with_kslabs``) are kept while that
+        candidate wins a batch shape, and dropped after a race that leaves
+        it winning none.  A key whose slabs do not fit after the race
+        (``_with_kslabs`` raises ``Unsupported``) goes to the race's
+        runner-up, call by call, with no new race; the other keys keep
+        their slabs."""
         from ..utils.dispatch import AdaptiveDispatcher
         disp = AdaptiveDispatcher()
         disp.register("pbs", "pallas", functools.partial(
             TfheEngine.bootstrap_with_test_poly, self))
-        # pallas_fused is opt-in, as in the JAX package
-        names = ("mxu", "pallas_fused") if os.environ.get(
-            "NFA_ADAPTIVE_FUSED") else ("mxu",)
-        for name in names:
+        for name in ("mxu", "pallas_fused"):
             disp.register("pbs", name, TfheEngine(
                 self.p, ext_backend=name,
                 device=self.device).bootstrap_with_test_poly)
+        steps = TfheEngine(self.p, ext_backend="mxu_fused",
+                           device=self.device)
+        disp.register("pbs", "mxu_fused", lambda lwe, bsk, tp:
+                      steps.bootstrap_with_test_poly(
+                          lwe, self._with_kslabs(bsk), tp))
+        self._kslabs = WeakIdKeyDictionary()
+
+        def route(lwe, bsk, tp):
+            out = disp.dispatch("pbs", lwe, bsk, tp)
+            if self._kslabs and "mxu_fused" not in disp.winners("pbs"):
+                self._kslabs.clear()
+            return out
+
         self.dispatcher = disp
-        self.bootstrap_with_test_poly = \
-            lambda lwe, bsk, tp: disp.dispatch("pbs", lwe, bsk, tp)
+        self.bootstrap_with_test_poly = route
+
+    def _with_kslabs(self, bsk: BootstrapKey) -> BootstrapKey:
+        """``bsk`` with the K-major slabs "mxu_fused" reads: its own, else
+        those of ``self._kslabs`` (keyed on the key rows ``ggsw_i8``, held
+        weakly, so they go with the key), built there on the key's first
+        call.  Raises ``Unsupported`` before building slabs that would take
+        more than ``KSLABS_SHARE_OF_FREE`` of the card's free memory."""
+        from ..utils.dispatch import Unsupported
+        if bsk.ggsw_kslabs is not None:
+            return bsk
+        slabs = self._kslabs.get(bsk.ggsw_i8)
+        if slabs is None:
+            need = kslabs_bytes(bsk.ggsw_i8)
+            free = torch.cuda.mem_get_info(self.device)[0]
+            if need > KSLABS_SHARE_OF_FREE * free:
+                raise Unsupported(f"K-major slabs of {need} bytes with "
+                                  f"{free} bytes free")
+            slabs = self.prepare_bsk(bsk, "slabs").ggsw_kslabs
+            self._kslabs[bsk.ggsw_i8] = slabs
+        return dataclasses.replace(bsk, ggsw_kslabs=slabs)
 
     # ------------------------------------------------------------------
     # Random draws

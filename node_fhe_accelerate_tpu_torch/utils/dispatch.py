@@ -7,14 +7,17 @@ later call with that shape class to it.  A candidate that raises
 ``Unsupported`` (before any launch: it cannot take these inputs) loses the
 race with time ``inf``; any other exception propagates, so a kernel that
 fails to build or launch stops the race instead of handing it to a slower
-candidate.
+candidate.  A winner that raises ``Unsupported`` on a later call of its
+shape class (a new key whose prepared form no longer fits) hands that call
+to the race's next fastest candidate that takes it; the shape class keeps
+its winner and no new race runs.
 
 Call sites:
 
 * ``TfheEngine(ext_backend="auto")`` on the card routes
   ``bootstrap_with_test_poly`` through a dispatcher over the "pallas"
-  (per-step kernel) and "mxu" (plain contraction) backends, plus
-  "pallas_fused" when ``NFA_ADAPTIVE_FUSED`` is set (core/bootstrap.py);
+  (per-step kernel), "mxu" (plain contraction), "pallas_fused" and
+  "mxu_fused" (one-launch ladders) backends (core/bootstrap.py);
 * ``Curve.msm`` (zk/curve.py) races the Pippenger against the per-point
   ladders inside the band 32 <= n_pad <= 1024, through
   ``global_dispatcher()``.
@@ -152,7 +155,24 @@ class AdaptiveDispatcher:
         return sel
 
     def dispatch(self, op: str, *args):
-        return self._selection(op, args).fn(*args)
+        sel = self._selection(op, args)
+        try:
+            return sel.fn(*args)
+        except Unsupported:
+            pass
+        fns = {c.name: c.fn for c in self._candidates[op]}
+        for name in sorted(sel.timings, key=sel.timings.get):
+            if name == sel.name:
+                continue
+            try:
+                return fns[name](*args)
+            except Unsupported:
+                pass
+        raise Unsupported(f"no candidate of {op!r} takes this call")
+
+    def winners(self, op: str) -> set:
+        """The names that won a race of ``op``, over its shape classes."""
+        return {sel.name for (o, _), sel in self._cache.items() if o == op}
 
     def selection_for(self, op: str, *args) -> str:
         """Winner name for these args (measuring on first use)."""

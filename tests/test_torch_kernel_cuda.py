@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from node_fhe_accelerate_tpu_torch.core.bootstrap import (
-    TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, TfheEngine, TfheParams)
+    TFHE_BOOT_128, TFHE_BOOT_128_K4, TFHE_BOOT_128_L2, TfheEngine,
+    TfheParams)
 from node_fhe_accelerate_tpu_torch.ops.cmux import (
     build_all_step_kslabs, build_diag_kslabs, cmux_step, cmux_step_reference,
     cmux_step_slabs, cmux_step_slabs_reference)
@@ -76,8 +77,8 @@ def random_step(p, batch, dev, seed):
 
 
 SHAPES = dict(argvalues=[(SMALL, 100), (TFHE_BOOT_128_K4(), 77),
-                         (TFHE_BOOT_128_L2(), 40)],
-              ids=["k1_l3_ragged", "k4_ragged", "l2_n1024"])
+                         (TFHE_BOOT_128_L2(), 40), (TFHE_BOOT_128(), 50)],
+              ids=["k1_l3_ragged", "k4_ragged", "l2_n1024", "boot128"])
 
 
 @pytest.mark.cuda
@@ -965,12 +966,13 @@ def test_dist_ring_on_card_matches_cpu(cuda_device, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused", "auto"])
 def test_sharded_pbs_on_card_matches_cpu(cuda_device, backend):
     """The sharded bootstrap over 4 positions on one card (the per-step
-    kernel or the fused ladder) equals the unsharded one on the card and
-    the plain "mxu" bootstrap on the CPU on the same key; the key is held
-    once on the card."""
+    kernel, the fused ladder, or "auto"'s race of the four) equals the
+    unsharded one on the card and the plain "mxu" bootstrap on the CPU on
+    the same key; the key is held once on the card, and "auto" builds its
+    K-major slabs at most once for it."""
     from node_fhe_accelerate_tpu_torch.parallel.mesh import (gather,
                                                              make_mesh)
     from node_fhe_accelerate_tpu_torch.parallel.pbs import (
@@ -990,6 +992,10 @@ def test_sharded_pbs_on_card_matches_cpu(cuda_device, backend):
     out = gather(sharded_bootstrap_fn(eng, mesh)(ct, rep, tp))
     ref = eng.bootstrap_with_test_poly(ct, bsk, tp)
     assert torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)
+    if backend == "auto":
+        assert len(eng.dispatcher.selection_table()) == 2
+        assert len(eng._kslabs) == ("mxu_fused" in
+                                    eng.dispatcher.winners("pbs"))
     from node_fhe_accelerate_tpu_torch.core.bootstrap import LweCiphertext
     cpu = TfheEngine(p, ext_backend="mxu", device="cpu")
     bsk_c = dataclasses.replace(bsk, ksk_a=bsk.ksk_a.cpu(),
